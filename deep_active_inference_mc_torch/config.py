@@ -2,13 +2,16 @@
 ``Config`` (same field names, same defaults; a test holds them equal).
 
 The comments name the option; the JAX package's ``config.py`` holds the
-measurements behind each non-reference default. The run-folder, save/load
-and CLI-override helpers come with the trainer that uses them.
+measurements behind each non-reference default. The config is serialized
+into the run directory and can be overridden from the CLI.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+from pathlib import Path
 from typing import Optional
 
 
@@ -98,3 +101,34 @@ class Config:
             f"{self.prefix}{self.gamma_rate}_{self.gamma_delay}_{self.var_a}_"
             f"{self.batch}_{self.s_dim}_{self.repeats}"
         )
+
+    @property
+    def folder(self) -> Path:
+        return Path(self.out_root) / f"figs_{self.signature}"
+
+    @property
+    def folder_chp(self) -> Path:
+        return self.folder / "checkpoints"
+
+    def save(self, path: Path) -> None:
+        path.write_text(json.dumps(dataclasses.asdict(self), indent=2))
+
+    @classmethod
+    def load(cls, path: Path) -> "Config":
+        return cls(**json.loads(path.read_text()))
+
+    @classmethod
+    def from_args(cls, argv=None, **overrides) -> "Config":
+        """CLI override parsing: any field is settable via ``--field value``
+        (bool fields are bare flags)."""
+        scalar_types = {"int": int, "float": float, "str": str, "Optional[int]": int}
+        parser = argparse.ArgumentParser(description="Config overrides.")
+        for f in dataclasses.fields(cls):
+            if f.type in scalar_types:
+                parser.add_argument(f"--{f.name}", type=scalar_types[f.type], default=None)
+            elif f.type == "bool":
+                parser.add_argument(f"--{f.name}", action="store_true", default=None)
+        args = parser.parse_args(argv)  # strict: typo'd flags error out
+        vals = {k: v for k, v in vars(args).items() if v is not None}
+        vals.update(overrides)
+        return cls(**vals)

@@ -75,18 +75,25 @@ def reset(generator: torch.Generator, batch: int, device) -> EnvState:
     )
 
 
+EnvDraws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # latents, score, last_r
+
+
+def draw_randomize(generator: torch.Generator, batch: int, device) -> EnvDraws:
+    """The draws of ``randomize``: latents, score ~ U(-10, 10) and
+    last_r ~ U(-1, 1)."""
+    return (
+        sample_latents(generator, batch, device),
+        torch.rand((batch,), generator=generator, device=device) * 20.0 - 10.0,
+        torch.rand((batch,), generator=generator, device=device) * 2.0 - 1.0,
+    )
+
+
 def randomize(state: EnvState, generator: Optional[torch.Generator] = None,
-              draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
-              ) -> EnvState:
-    """Random latents, score ~ U(-10, 10) and last_r ~ U(-1, 1). ``draws``
-    injects (latents, score, last_r)."""
+              draws: Optional[EnvDraws] = None) -> EnvState:
+    """Random latents, score and last_r. ``draws`` injects (latents, score,
+    last_r); else they come from ``generator`` (``draw_randomize``)."""
     if draws is None:
-        B, dev = state.batch, state.device
-        draws = (
-            sample_latents(generator, B, dev),
-            torch.rand((B,), generator=generator, device=dev) * 20.0 - 10.0,
-            torch.rand((B,), generator=generator, device=dev) * 2.0 - 1.0,
-        )
+        draws = draw_randomize(generator, state.batch, state.device)
     latents, score, last_r = draws
     return EnvState(latents=latents, score=score, last_r=last_r)
 

@@ -8,8 +8,9 @@ JAX ``params`` into it).
 Dropout policy, as in the JAX package: the transition's MC dropout is live
 wherever theta is sampled (G, imagination), and the caller passes its
 keep-masks; encoder and decoder run without dropout unless masks are given
-(only the training losses give them). Serving runs under
-``torch.inference_mode()``.
+(only the training losses give them, under ``vae_train_dropout``). Serving
+runs under ``torch.inference_mode()``; the training round's generator half
+runs under ``torch.no_grad()``, because its tensors feed the losses.
 """
 
 from __future__ import annotations

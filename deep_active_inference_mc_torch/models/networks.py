@@ -17,7 +17,7 @@ Observations are NCHW. The Flax modules use SAME padding and NHWC, so:
   - the encoder flattens and the decoder reshapes in NHWC order.
 
 Dropout is explicit: a forward takes keep-masks (bool, one per dropout
-layer; ``TransitionNet.draw_masks`` draws them from a generator) or
+layer; each network's ``draw_masks`` draws them from a generator) or
 ``None`` for the deterministic net. Kept units are scaled by 1/(1-p), as
 Flax does.
 Weights start He-uniform with Flax's fan-in (``kh*kw*in`` for both conv
@@ -145,6 +145,10 @@ class Encoder(nn.Module):
             nn.Linear(256, 2 * s_dim),
         ])
 
+    def draw_masks(self, rows: int, generator: torch.Generator, device) -> List[torch.Tensor]:
+        return _draw_masks(rows, [fc.out_features for fc in self.fc[:3]],
+                           self.dropout_rate, generator, device)
+
     def forward(self, o: torch.Tensor, masks: Masks = None):
         x = o
         for conv in self.conv:
@@ -182,6 +186,10 @@ class Decoder(nn.Module):
             nn.ConvTranspose2d(cin, cout, 3, stride=st, padding=1 if st == 1 else 0)
             for cin, cout, st in spec
         ])
+
+    def draw_masks(self, rows: int, generator: torch.Generator, device) -> List[torch.Tensor]:
+        return _draw_masks(rows, [fc.out_features for fc in self.fc], self.dropout_rate,
+                           generator, device)
 
     def forward(self, s: torch.Tensor, masks: Masks = None):
         x = s

@@ -1,5 +1,6 @@
 """PyTorch port: the hand-written CUDA kernels against their plain PyTorch
-versions on a card. Marked ``cuda``; without a card they skip. The file
+versions on a card, and the training round and checkpoint on a card.
+Marked ``cuda``; without a card they skip. The file
 imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -9,10 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import dsprites as tenv
 from deep_active_inference_mc_torch.envs import raster as traster
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
 from deep_active_inference_mc_torch.ops.cuda import render as k_render
+from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+from deep_active_inference_mc_torch.train import loop as train_loop
+from deep_active_inference_mc_torch.utils import checkpoint as ckpt
+from deep_active_inference_mc_torch.utils import stats as stats_lib
+from deep_active_inference_mc_torch.utils.device import seeded_generator
 
 LAST_R = np.asarray([-1.0, -0.3, 0.0, 0.4], np.float32)
 
@@ -61,3 +68,46 @@ def test_env_render_on_card_launches_the_kernel(cuda_device):
     torch.cuda.synchronize()
     assert LAUNCHES["render"] == before + 1
     assert frames.shape == (64, 1, 64, 64) and frames.is_cuda
+
+
+@pytest.mark.cuda
+def test_train_round_on_card_launches_the_kernel_twice(cuda_device):
+    """One training round renders o0 and o1 through K1 and steps all three
+    Adams, with every metric finite and still on the card."""
+    cfg = Config(batch=64, crn=True, gen_mean=True, edge_frac=0.3)
+    gen = seeded_generator(cuda_device, 0)
+    state = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen, cuda_device)
+    round_fn = train_loop.make_round_fn(cfg, traster.build_sprite_lut(cuda_device))
+    before = LAUNCHES["render"]
+    state, metrics = round_fn(state, gen)
+    assert LAUNCHES["render"] == before + 2
+    assert set(metrics) == set(train_loop.METRIC_KEYS)
+    assert all(v.is_cuda and bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(int(o.state_dict()["state"][0]["step"]) == 1 for o in state.opts.values())
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A resumed run continues the CUDA generator's stream, with weights,
+    moments, precisions and envs on the card and Adam's step counters on
+    the CPU, as a fresh optimizer keeps them."""
+    cfg = Config(batch=4)
+    gen = seeded_generator(cuda_device, 1)
+    state = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen, cuda_device)
+    round_fn = train_loop.make_round_fn(cfg, traster.build_sprite_lut(cuda_device))
+    state, _ = round_fn(state, gen)
+    ckpt.save_all(tmp_path / "checkpoints", state, stats_lib.new_stats(), gen)
+    gen2 = seeded_generator(cuda_device, 2)
+    template = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen2, cuda_device)
+    restored, _ = ckpt.load_all(tmp_path / "checkpoints", template, gen2)
+    assert all(p.is_cuda for p in restored.agent.parameters())
+    assert restored.env.latents.is_cuda and restored.precision.gamma.is_cuda
+    for layer, opt in restored.opts.items():
+        fresh = state.opts[layer].state_dict()["state"][0]
+        got = opt.state_dict()["state"][0]
+        assert got["step"].device == fresh["step"].device and int(got["step"]) == 1
+        assert got["exp_avg"].is_cuda and torch.equal(got["exp_avg"], fresh["exp_avg"])
+    assert torch.equal(torch.rand(8, generator=gen2, device=cuda_device),
+                       torch.rand(8, generator=gen, device=cuda_device))
+    restored, metrics = round_fn(restored, gen2)
+    assert bool(torch.isfinite(metrics["F_down"]))

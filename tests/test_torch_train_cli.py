@@ -1,0 +1,149 @@
+"""PyTorch port: the trainer CLI (``apps/train.py``) end to end on the CPU
+at a tiny size, its refusals, and its Config parsing against the JAX
+package's."""
+
+import dataclasses
+import json
+import os
+import pickle
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deep_active_inference_mc_tpu import config as jconfig
+from deep_active_inference_mc_torch.apps import train as train_app
+from deep_active_inference_mc_torch.config import Config
+from deep_active_inference_mc_torch.utils import stats as stats_lib
+from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
+
+ROOT = Path(__file__).resolve().parent.parent
+TINY = ["--device", "cpu", "--batch", "8", "--rounds", "3", "--test_size", "16",
+        "--sweep_envs", "8", "--sweep_steps", "2"]
+
+
+def steps_of(state):
+    return {k: int(o.state_dict()["state"][0]["step"]) for k, o in state.opts.items()}
+
+
+def test_train_two_epochs_then_resume(tmp_path, capsys):
+    argv = TINY + ["--out_root", str(tmp_path)]
+    out = train_app.main(argv + ["--epochs", "2"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ", F: " in ln]
+    assert [ln.split(",")[0] for ln in lines] == ["1", "2"]
+    for part in ("MSEo: ", "(clean ", "KLs: ", "omega: ", "KLpi: ", "TC: ", "score: ",
+                 "edge: h ", "gn: ", "env_steps/s: ", "dur. "):
+        assert part in lines[-1], part
+    assert out["start_epoch"] == 1 and steps_of(out["state"]) == {"top": 6, "mid": 6, "down": 6}
+    stats = out["stats"]
+    assert set(stats) == set(stats_lib.STATS_KEYS)
+    assert all(len(v) == 2 for v in stats.values())
+    for k, v in stats.items():
+        assert np.all(np.isfinite(np.asarray(v, dtype=np.float64))), k
+    assert stats["kl_div_s_anal"][0].shape == (10,)
+
+    folder = out["folder"]
+    assert folder.parent == tmp_path and folder.name.startswith("figs_final_model_")
+    assert json.loads((folder / "config.json").read_text())["batch"] == 8
+    chp = folder / "checkpoints"
+    # save_every=2: the checkpoint holds the weights after epoch 2 beside
+    # both epochs' stats.
+    saved = pickle.loads((chp / "stats.pkl").read_bytes())
+    assert len(saved["F"]) == 2
+    assert (chp / "state" / "state.pt").exists() and (chp / "train.py").exists()
+    assert not list(folder.glob("checkpoints_epoch_*"))  # archive_every=25
+
+    out2 = train_app.main(argv + ["--resume", "--epochs", "3", "--archive_every", "3",
+                                  "--save_every", "1"])
+    text = capsys.readouterr().out
+    assert "Resumed from" in text and "at epoch 3" in text
+    assert [ln.split(",")[0] for ln in text.splitlines() if ", F: " in ln] == ["3"]
+    assert out2["start_epoch"] == 3
+    # The Adam step counts continue: 2 epochs restored + 1 trained.
+    assert steps_of(out2["state"]) == {"top": 9, "mid": 9, "down": 9}
+    assert len(out2["stats"]["F"]) == 3 and out2["stats"]["F"][:2] == stats["F"]
+    arch = torch.load(folder / "checkpoints_epoch_3" / "state" / "state.pt", weights_only=True)
+    assert "opt_states" not in arch and "agent" in arch
+    # Nothing left to do: a clean exit that trains nothing.
+    out3 = train_app.main(argv + ["--resume", "--epochs", "3"])
+    assert out3["start_epoch"] == 4 and out3["env_steps_per_s"] == []
+
+
+def test_resume_without_checkpoint_starts_fresh_and_epochs_0_exits_cleanly(tmp_path, capsys):
+    out = train_app.main(TINY + ["--resume", "--epochs", "0", "--out_root", str(tmp_path)])
+    assert out["start_epoch"] == 1 and out["stats"]["F"] == []
+    assert "Resumed" not in capsys.readouterr().out
+    assert (out["folder"] / "config.json").exists()
+
+
+def test_typoed_flag_errors(tmp_path):
+    with pytest.raises(SystemExit) as exc:
+        train_app.main(TINY + ["--epocs", "2", "--out_root", str(tmp_path)])
+    assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("argv, part", [
+    (["--distill_every", "1"], "distill"),
+    (["--mesh_shape", "2"], "mesh"),
+    (["--coordinator", "localhost:1234"], "mesh"),
+    (["--bf16"], "bf16"),
+])
+def test_unported_parts_are_refused_by_name(tmp_path, argv, part):
+    with pytest.raises(NotImplementedError, match=part):
+        train_app.main(TINY + argv + ["--epochs", "1", "--out_root", str(tmp_path)])
+    assert not list(tmp_path.iterdir())  # refused before anything is written
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_app.main(["--batch", "8", "--epochs", "0", "--out_root", str(tmp_path)])
+
+
+def test_config_from_args_and_save_load_match_jax(tmp_path):
+    argv = ["--mesh_shape", "4", "--bf16", "--sweep_envs", "16", "--sweep_steps", "3",
+            "--viz_every", "2", "--l_rate_down", "0.01", "--prefix", "x_", "--crn"]
+    tcfg, jcfg = Config.from_args(argv, batch=7), jconfig.Config.from_args(argv, batch=7)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.mesh_shape == 4 and tcfg.bf16 is True and tcfg.crn is True and tcfg.batch == 7
+    assert (tcfg.folder, tcfg.folder_chp) == (jcfg.folder, jcfg.folder_chp)
+    tcfg.save(tmp_path / "config.json")
+    assert Config.load(tmp_path / "config.json") == tcfg
+    assert jconfig.Config.load(tmp_path / "config.json") == jcfg
+    with pytest.raises(SystemExit):
+        Config.from_args(["--no_such_field", "1"])
+
+
+def test_sigterm_saves_a_resumable_checkpoint_and_exits_130(tmp_path):
+    """A supervisor's SIGTERM mid-run: exit code 130 and a checkpoint that
+    ``--resume`` picks up."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    argv = [sys.executable, "-m", "deep_active_inference_mc_torch.apps.train", *TINY,
+            "--rounds", "2", "--epochs", "100000", "--save_every", "100000",
+            "--out_root", str(tmp_path)]
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 120
+        for line in proc.stdout:  # wait for the first epoch line
+            if ", F: " in line or time.time() > deadline:
+                break
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.stdout.read()
+        assert proc.wait(timeout=60) == 130, rest
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert "Interrupted: saving checkpoint for --resume" in rest
+    chp = next(tmp_path.glob("figs_*")) / "checkpoints"
+    n = len(pickle.loads((chp / "stats.pkl").read_bytes())["F"])
+    assert n >= 1 and (chp / "state" / "state.pt").exists()
+    out = train_app.main(TINY + ["--resume", "--epochs", "0", "--out_root", str(tmp_path)])
+    assert out["start_epoch"] == n + 1
