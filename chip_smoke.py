@@ -3,18 +3,20 @@
 
     python3 chip_smoke.py            # what a check of the port runs
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of two
-                                     # ai macro steps (after phase 3) and of
-                                     # two training rounds (after phase 4)
+                                     # ai macro steps (after phase 3), of two
+                                     # training rounds (after phase 4) and of
+                                     # two planner iterations (after phase 6)
     python3 chip_smoke.py --profile --trace-dir DIR  # and their chrome traces
 
 Phases (any failure exits non-zero and prints no result):
   1. device: the card's name and power limit; build every CUDA kernel
      from this checkout's sources (one nvcc per source, all in parallel).
   2. kernel K1 (frame render) against its plain PyTorch version, bit for
-     bit (tolerance 0) at every batch the two paths give it (512 training
-     rounds and sweeps, 1000 eval frames, 1024 sweep envs, and the edge
-     probe's own 96 latents with no reward shown) and at 1, 33 and 4096; at
-     1 (the floor of the timing method), 512, 1024 and 4096 the
+     bit (tolerance 0) at every batch the paths give it (256 and 512
+     planner sweeps, 512 training rounds and sweeps, 1000 eval frames, 1024
+     sweep envs, and the edge probe's own 96 latents with no reward shown)
+     and at 1, 33 and 4096; at
+     1 (the floor of the timing method), 256, 512, 1024 and 4096 the
      device time of one call of each (median of 100 calls queued behind a
      sleep kernel, after a discarded pass of the same and a burst of work
      that raises the clocks, CUDA events around each call, L2 evicted
@@ -40,7 +42,23 @@ Phases (any failure exits non-zero and prints no result):
      then one training round at batch 8 with injected noise: the three
      losses within 1e-4 and the three gradient norms within 1e-3
      (relative) of the CPU's.
-  6. one JSON line describing every hand-written kernel, the card's
+  6. the planner path at full width. (a) Planner mechanics on a
+     deterministic mock of the model: the same roots through the plain and
+     the bucketed planner on the CPU and on the card, every result field
+     and the tree bit-equal (index ops, scatter-add, ties, compaction).
+     (b) The sweep CLI's ``main`` with ``--method mcts`` at 256 envs and the
+     CLI's defaults (50 repeats, simulation depth 3, max_depth 16), depth
+     cut to 3 macro steps: unfused, then ``--mcts_fused``. (c) The behaviour
+     ladder's best configuration, ``--mcts_bucketed --plan_queue --mcts_c
+     2``, 512 envs, 6 macro steps. (d) One plan at the reference budget (300
+     repeats), 256 envs, fused: plain and bucketed. (e) One search on the
+     real agent, B = 8, 4 repeats, injected noise, TF32 off, card against
+     CPU. Every plan is checked (scores finite, actions in range, lengths
+     <= max_depth, repeats_done <= budget); each run prints ms per macro
+     step, plans/s, ms per planner iteration, repeats_done, depth_capped,
+     peak memory and K1's launches, which must equal the macro steps that
+     planned.
+  7. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 """
@@ -48,6 +66,7 @@ Phases (any failure exits non-zero and prints no result):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -76,12 +95,20 @@ TRAIN_EPOCHS = 2  # then one more after --resume
 TRAIN_SWEEP_STEPS = 10  # the trainer's default is 100
 TRAIN_TEST_SIZE = 1000
 TRAIN_SWEEP_ENVS = 512
+# The planner phase: the sweep CLI's MCTS defaults, depth cut.
+MCTS_ENVS = 256
+MCTS_MACRO = 3  # the CLI's default is 100
+MCTS_REPEATS, MCTS_MAX_DEPTH = 50, 16  # the CLI's defaults
+LADDER_ENVS, LADDER_MACRO = 512, 6  # artifacts/run512/eval_log_round5.txt's best row
+REF_BUDGET = 300  # the reference's repeats
+SEARCH_REPEATS = 4  # the card-against-CPU search
+PROB_MARGIN = 1e-2  # a selection argmax is compared only above this top-two gap
 # K1 is held to its plain version at every batch the two paths give it
 # (the edge probe's 96 rows are a case of their own in phase_render) and at
 # a 1-env, an odd and a large one; timed where a path spends its launches.
-RENDER_CHECK_B = sorted({1, 33, TRAIN_BATCH, TRAIN_SWEEP_ENVS, TRAIN_TEST_SIZE,
-                         SWEEP_ENVS, 4096})
-RENDER_TIME_B = (1, TRAIN_BATCH, SWEEP_ENVS, 4096)  # B=1: the timing method's floor
+RENDER_CHECK_B = sorted({1, 33, MCTS_ENVS, TRAIN_BATCH, TRAIN_SWEEP_ENVS, LADDER_ENVS,
+                         TRAIN_TEST_SIZE, SWEEP_ENVS, 4096})
+RENDER_TIME_B = (1, MCTS_ENVS, TRAIN_BATCH, SWEEP_ENVS, 4096)  # B=1: the timing method's floor
 TRAIN_FLAGS = ["--crn", "--gen_mean", "--explore_eps", "0.1", "--edge_frac", "0.3",
                "--gen_habit_mix", "0.5"]
 EVAL_RENDERS = 5  # K1 launches of one eval pass: 4 at test_size, the edge probe's 96
@@ -576,14 +603,414 @@ def phase_round_card_vs_cpu(torch, dev) -> None:
         check(ok, f"one round, card against CPU: {key} out of tolerance")
 
 
+# ------------------------------------------------------------ the planner
+class MockPlannerModel:
+    """A deterministic stand-in for the agent and the two G functions the
+    planner calls, in arithmetic that rounds the same on the CPU and on the
+    card: elementwise products, sums taken term by term, divisions, table
+    look-ups. G depends on state and action; the next state drifts by
+    action. With ``ties`` every action of a node has the same G, so every
+    argmax of a walk meets an exact tie."""
+
+    pi_dim = 4
+    S_DIM = 6
+
+    def __init__(self, torch, device, ties: bool = False):
+        self.torch = torch
+        self.pi_one_hot = torch.eye(self.pi_dim, device=device)
+        self.w_G = [-0.5 + 1.3 * j / (self.S_DIM - 1) for j in range(self.S_DIM)]
+        # The tables are made on the CPU and moved, as weights are: a card
+        # divides a tensor by a number by multiplying with its reciprocal.
+        self.c_A = torch.tensor([0.0] * 4 if ties else [0.3, -0.2, 0.05, -0.4]).to(device)
+        self.d_A = (torch.arange(4.0 * self.S_DIM).reshape(4, self.S_DIM)
+                    / (4 * self.S_DIM) - 0.4).to(device)
+
+    @staticmethod
+    def _sum(terms):
+        total = terms[0]
+        for x in terms[1:]:
+            total = total + x
+        return total
+
+    def encode(self, frames):  # "frames" are already states
+        return frames, None
+
+    def _q_pi(self, s):
+        q = s[:, :self.pi_dim] * s[:, :self.pi_dim] + 0.1
+        return q / self._sum([q[:, j] for j in range(self.pi_dim)])[:, None]
+
+    def habit(self, s):
+        q = self._q_pi(s)
+        return None, q, self.torch.log(q + 1e-20)
+
+    def calculate_G_mean(self, agent, s0, pi0, generator=None, draws=None):
+        a = pi0.argmax(dim=-1)
+        G = self._sum([s0[:, j] * self.w_G[j] for j in range(self.S_DIM)]) + self.c_A[a]
+        return G, None, s0 * 0.9 + self.d_A[a], None
+
+    def mcts_step_simulate(self, agent, leaf_s, depth, use_means=False, generator=None,
+                           draws=None):
+        G = self._sum([leaf_s[:, j] for j in range(self.S_DIM)]) * 0.7
+        return G, None, self._q_pi(leaf_s)
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set attributes of ``obj`` for the block, then put the old ones back."""
+    old = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+RESULT_FIELDS = ("actions", "lengths", "repeats_done", "states_explored", "depth_capped",
+                 "root_N", "root_Qpi")
+TREE_FIELDS = ("s", "W", "N", "Qpi", "children", "done", "repeats_done", "states_explored",
+               "depth_capped")
+
+# name: (MCTSParams fields, envs, check_every, min_bucket, ties)
+MECHANICS_CASES = {
+    "compaction": (dict(repeats=24, threshold=0.3, max_depth=16), 64, 2, 4, False),
+    "prior": (dict(repeats=24, threshold=0.28, max_depth=16,
+                   using_prior_for_exploration=True), 64, 2, 4, False),
+    "depth_cap": (dict(repeats=14, threshold=1.1, C=0.01, max_depth=3), 16, 4, 4, False),
+    "expand_k2": (dict(repeats=24, threshold=0.2, max_depth=16, expand_k=2), 64, 2, 4, False),
+    "ties": (dict(repeats=8, threshold=10.0, max_depth=16), 8, 2, 4, True),
+}
+
+
+def phase_planner_mechanics(torch, dev) -> None:
+    """The plain and the bucketed planner on the mock model, card against
+    CPU: every result field, the tree and the bucket traces equal."""
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+
+    for name, (fields, B, check_every, min_bucket, ties) in MECHANICS_CASES.items():
+        p = mcts_lib.MCTSParams(**fields)
+        roots = torch.randn((B, MockPlannerModel.S_DIM),
+                            generator=torch.Generator().manual_seed(3)) * 0.5
+        if ties:
+            roots = torch.zeros_like(roots)
+        runs = {}
+        for d in (torch.device("cpu"), dev):
+            model = MockPlannerModel(torch, d, ties)
+            with patched(mcts_lib.efe, calculate_G_mean=model.calculate_G_mean,
+                         mcts_step_simulate=model.mcts_step_simulate):
+                if ties:
+                    # Every root edge has the same W and N: the walk's first
+                    # argmax must take the first maximum, action 0 into slot 1.
+                    tree = mcts_lib._init_search(model, roots.to(d), p, (7,)).tree
+                    _, acts, _, leaf = mcts_lib._select(tree, p.C, False, p.max_depth)
+                    check(bool((tree.W[:, 0] == tree.W[:, 0, :1]).all()),
+                          "planner mechanics: the ties case has no tie at the root")
+                    check(bool((acts[:, 0] == 0).all() and (leaf == 1).all()),
+                          f"planner mechanics: argmax on {d.type} did not take the first of "
+                          f"tied maxima")
+                plain = mcts_lib.active_inference_mcts(model, roots.to(d), p, (7,),
+                                                       return_tree=True)
+                plan = mcts_lib.make_bucketed_planner(model, p, check_every, min_bucket)
+                bucketed = plan(roots.to(d), (7,))
+            runs[d.type] = (plain, bucketed, list(plan.bucket_trace), list(plan.schedule))
+        cpu_plain, cpu_bucketed, cpu_trace, cpu_schedule = runs["cpu"]
+        plain, bucketed, trace, schedule = runs[dev.type]
+        for f in RESULT_FIELDS:
+            want = getattr(cpu_plain, f)
+            for label, got in (("card plain", getattr(plain, f)),
+                               ("card bucketed", getattr(bucketed, f)),
+                               ("cpu bucketed", getattr(cpu_bucketed, f))):
+                check(torch.equal(got.cpu(), want),
+                      f"planner mechanics {name}: {label} {f} differs from the CPU's plain")
+        for f in TREE_FIELDS:
+            check(torch.equal(getattr(plain.tree, f).cpu(), getattr(cpu_plain.tree, f)),
+                  f"planner mechanics {name}: the card's tree.{f} differs from the CPU's")
+        check(trace == cpu_trace and schedule == cpu_schedule,
+              f"planner mechanics {name}: bucket trace {trace} at {schedule} on the card, "
+              f"{cpu_trace} at {cpu_schedule} on the CPU")
+        if name in ("compaction", "prior", "expand_k2"):
+            check(len(trace) > 1, f"planner mechanics {name}: no compaction fired ({trace})")
+        if name == "depth_cap":
+            check(int(plain.depth_capped.sum()) > 0, "planner mechanics: no walk hit the cap")
+        reps = cpu_plain.repeats_done
+        print(f"[planner mechanics] {name}: {B} envs, card == CPU and bucketed == plain in "
+              f"{len(RESULT_FIELDS)} result fields and {len(TREE_FIELDS)} tree fields, bit for "
+              f"bit; repeats_done {int(reps.min())}-{int(reps.max())}, depth_capped "
+              f"{int(cpu_plain.depth_capped.sum())}, buckets {trace} at iterations {schedule}",
+              flush=True)
+
+
+def check_plan(torch, tag: str, res, p) -> None:
+    """The checks every planner result must pass."""
+    n_iters = -(-p.repeats // p.expand_k)
+    acts = res.actions
+    check(tuple(acts.shape[1:]) == (p.max_depth,), f"{tag}: actions {tuple(acts.shape)}")
+    check(bool(((acts >= -1) & (acts < 4)).all()), f"{tag}: an action outside [-1, 4)")
+    check(bool(((res.lengths >= 0) & (res.lengths <= p.max_depth)).all()),
+          f"{tag}: a path longer than max_depth")
+    padded = torch.arange(p.max_depth, device=acts.device)[None, :] >= res.lengths[:, None]
+    check(bool(((acts == -1) == padded).all()), f"{tag}: padding does not follow the lengths")
+    check(bool(((res.repeats_done >= 0) & (res.repeats_done <= n_iters * p.expand_k)).all()),
+          f"{tag}: repeats_done beyond the budget")
+    check(bool(torch.isfinite(res.root_N).all() and torch.isfinite(res.root_Qpi).all()),
+          f"{tag}: non-finite root statistics")
+    check(bool((res.root_N.sum(dim=-1) >= 4).all()), f"{tag}: a root that was not expanded")
+
+
+@contextlib.contextmanager
+def recorded_plans(torch, log: list):
+    """While the block runs, every plan of the port's two planners is
+    checked and appended to ``log`` as (envs, seconds, result, buckets);
+    the seconds are host time around the plan, synchronized on both sides."""
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+
+    def timed(plan, p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plan()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_plan(torch, f"plan {len(log)}", res, p)
+        return res, dt
+
+    plain = mcts_lib.active_inference_mcts
+    make_bucketed = mcts_lib.make_bucketed_planner
+
+    def plain_recorded(agent, frames, p, *a, **kw):
+        res, dt = timed(lambda: plain(agent, frames, p, *a, **kw), p)
+        log.append((frames.shape[0], dt, res, None))
+        return res
+
+    class BucketedRecorded:
+        def __init__(self, agent, p, *a, **kw):
+            self._plan, self._p = make_bucketed(agent, p, *a, **kw), p
+
+        def __call__(self, frames, seed_path):
+            res, dt = timed(lambda: self._plan(frames, seed_path), self._p)
+            log.append((frames.shape[0], dt, res, list(self._plan.bucket_trace)))
+            return res
+
+        def __getattr__(self, name):  # bucket_trace, schedule
+            return getattr(self._plan, name)
+
+    with patched(mcts_lib, active_inference_mcts=plain_recorded,
+                 make_bucketed_planner=BucketedRecorded):
+        yield
+
+
+def report_plans(torch, tag: str, log: list, envs: int, macro: int, wall: float, launches: dict,
+                 smi: str) -> None:
+    reps = torch.cat([r.repeats_done for _, _, r, _ in log]).double()
+    capped = sum(int(r.depth_capped.sum()) for _, _, r, _ in log)
+    lengths = torch.cat([r.lengths for _, _, r, _ in log]).double()
+    plan_s = sum(dt for _, dt, _, _ in log)
+    # A plan runs until its slowest env decides (one iteration more, to see it).
+    iters = sum(min(int(r.repeats_done.max()) + 1, MCTS_REPEATS) for _, _, r, _ in log)
+    rows = sum(B for B, _, _, _ in log)
+    print(f"[mcts] {tag}: {envs} envs x {macro} macro, wall {wall:.4f}s, "
+          f"{wall / macro * 1e3:.2f} ms/macro, plans/s (envs x macro / wall) "
+          f"{envs * macro / wall:.2f}; {len(log)} planner calls over {rows} rows in "
+          f"{plan_s:.4f}s, {plan_s / iters * 1e3:.3f} ms per planner iteration ({iters} "
+          f"iterations); repeats_done mean {reps.mean():.2f} max {int(reps.max())}, "
+          f"depth_capped total {capped}, plan length mean {lengths.mean():.2f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches {launches} "
+          f"[{smi}]", flush=True)
+    traces = [tr for _, _, _, tr in log if tr is not None]
+    if traces:
+        print(f"[mcts] {tag}: bucket traces {traces}", flush=True)
+
+
+def phase_mcts_sweeps(torch, smi: str) -> dict:
+    """The planner path through the sweep CLI: unfused, fused, and the
+    ladder's bucketed + queue configuration. Returns K1's launch counts."""
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+
+    mcts = ["--method", "mcts", "--jumps", str(JUMPS), "--seed", "0"]
+    runs = {
+        "mcts": (MCTS_ENVS, MCTS_MACRO, []),
+        "mcts_fused": (MCTS_ENVS, MCTS_MACRO, ["--mcts_fused"]),
+        "mcts_bucketed_queue": (LADDER_ENVS, LADDER_MACRO,
+                                ["--mcts_bucketed", "--plan_queue", "--mcts_c", "2"]),
+    }
+    print(f"[mcts] depth cut: {MCTS_MACRO} and {LADDER_MACRO} macro steps (the CLI's default "
+          f"is 100); the widths, {MCTS_REPEATS} repeats, simulation depth 3 and max_depth "
+          f"{MCTS_MAX_DEPTH} are the CLI's defaults; seeded init, PyTorch's defaults")
+    # Warm-up: cuDNN picks its algorithms for the planner's batch shapes.
+    sweep_app.main(mcts + ["--envs", str(MCTS_ENVS), "--macro", "1", "--mcts_repeats", "2"])
+    out_launches = {}
+    for tag, (envs, macro, flags) in runs.items():
+        log = []
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        with recorded_plans(torch, log):
+            out = sweep_app.main(mcts + ["--envs", str(envs), "--macro", str(macro)] + flags)
+        launches = dict(LAUNCHES)
+        check(bool(torch.isfinite(out["scores"]).all()), f"{tag}: non-finite scores")
+        check(tuple(out["scores"].shape) == (envs,), f"{tag}: scores {tuple(out['scores'].shape)}")
+        # K1 renders once per macro step that planned; only the queued
+        # bucketed sweep can skip a step (no env's queue ran out).
+        want = len(log)
+        check(want == macro or "--plan_queue" in flags, f"{tag}: {want} plans, {macro} macro")
+        check(1 <= want <= macro, f"{tag}: {want} plans in {macro} macro steps")
+        check(launches.get("render", 0) == want,
+              f"{tag}: {launches.get('render', 0)} K1 launches, want {want} (the macro steps "
+              f"in which some env needed a plan)")
+        if "bucket_traces" in out:
+            check(out["bucket_traces"] == [tr for _, _, _, tr in log],
+                  f"{tag}: the sweep's bucket traces are not the planner's")
+        report_plans(torch, tag, log, envs, macro, out["wall"], launches, smi)
+        out_launches[f"sweep_{tag}"] = launches
+    return out_launches
+
+
+def planner_inputs(torch, dev, envs: int):
+    """(agent, frames) at full width on ``dev``: seeded init, rendered
+    frames of ``envs`` seeded random envs."""
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+
+    agent = sweep_app.build_agent(Config(), "", dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    env = env_lib.randomize(env_lib.reset(g, envs, dev), g)
+    with torch.inference_mode():
+        return agent, env_lib.render(raster.build_sprite_lut(dev), env)
+
+
+def phase_reference_budget(torch, dev, smi: str) -> None:
+    """One plan at the reference's budget, fused: plain and bucketed.
+    Printed, not asserted beyond the per-plan checks."""
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+
+    agent, frames = planner_inputs(torch, dev, MCTS_ENVS)
+    p = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
+                            fused_eval=True)
+    bucketed = mcts_lib.make_bucketed_planner(agent, p)  # the CLI's cadence: 16, 32
+    planners = {"plain": lambda: mcts_lib.active_inference_mcts(agent, frames, p, (0,)),
+                "bucketed": lambda: bucketed(frames, (0,))}
+    for tag, plan in planners.items():
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plan()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_plan(torch, f"reference budget, {tag}", res, p)
+        reps = res.repeats_done.double()
+        trace = f", buckets {bucketed.bucket_trace} at {bucketed.schedule}" if tag == "bucketed" \
+            else ""
+        print(f"[mcts] reference budget ({REF_BUDGET} repeats, fused, float32), {tag}: "
+              f"{MCTS_ENVS} envs, one plan in {dt:.4f}s, plans/s {MCTS_ENVS / dt:.2f}, "
+              f"{dt / min(int(reps.max()) + 1, REF_BUDGET) * 1e3:.3f} ms per iteration; "
+              f"repeats_done mean {reps.mean():.2f} max {int(reps.max())}, depth_capped total "
+              f"{int(res.depth_capped.sum())}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB{trace} [{smi}]", flush=True)
+
+
+def phase_search_card_vs_cpu(torch, dev) -> None:
+    """One whole search on the real agent with injected noise, card
+    against CPU, TF32 off. An env's integers are compared only if every
+    argmax its selection walks took on the CPU had a top-two gap above
+    PROB_MARGIN, which a G difference within tolerance cannot bridge."""
+    from deep_active_inference_mc_torch.infer import efe
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+
+    cpu = torch.device("cpu")
+    B = CARD_VS_CPU_ENVS
+    agent_cpu, frames = planner_inputs(torch, cpu, B)
+    p = mcts_lib.MCTSParams(repeats=SEARCH_REPEATS, simulation_depth=3,
+                            max_depth=MCTS_MAX_DEPTH, threshold=0.9)
+    g = torch.Generator().manual_seed(8)
+    draws = mcts_lib.SearchDraws(
+        efe.draw_G(agent_cpu, B * 4, g, cpu, sampled=False),
+        [mcts_lib.IterationDraws(expand=efe.draw_G(agent_cpu, B * 4, g, cpu, sampled=False),
+                                 simulate=efe.draw_simulate(agent_cpu, B, p.simulation_depth,
+                                                            g, cpu))
+         for _ in range(p.repeats)])
+
+    # The CPU's search, step by step, noting which envs' walks were clear.
+    clear = torch.ones(B, dtype=torch.bool)
+    bidx = torch.arange(B)
+    with torch.inference_mode():
+        carry = mcts_lib._init_search(agent_cpu, frames, p, None, draws)
+        for i in range(p.repeats):
+            nodes, _, _, _ = mcts_lib._select(carry.tree, p.C, False, p.max_depth)
+            for d in range(p.max_depth):
+                at = nodes[:, d].clamp(min=0)
+                top = mcts_lib._probs_for_selection(
+                    carry.tree.W[bidx, at], carry.tree.N[bidx, at], carry.tree.Qpi[bidx, at],
+                    p.C, False).topk(2).values
+                clear &= (nodes[:, d] < 0) | (top[:, 0] - top[:, 1] > PROB_MARGIN)
+            mcts_lib._run_search(agent_cpu, carry, p, i + 1, draws=draws.iterations)
+        want = mcts_lib._finalize_search(agent_cpu, carry, p)
+    want_tree = carry.tree
+
+    agent_gpu = type(agent_cpu)().to(dev)
+    agent_gpu.load_state_dict(agent_cpu.state_dict())
+    defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    got = mcts_lib.active_inference_mcts(agent_gpu, frames.to(dev), p,
+                                         draws=to_device(draws, dev), return_tree=True)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
+    check_plan(torch, "search card-vs-cpu", got, p)
+    check(int(clear.sum()) >= B // 2, f"search card-vs-cpu: only {int(clear.sum())} of {B} "
+          f"envs have every selection gap above {PROB_MARGIN}")
+    w_tol = dict(rtol=G_TOL["rtol"], atol=G_TOL["atol"] * (p.repeats + 1))
+    w_err = (got.tree.W.cpu() - want_tree.W)[clear].abs().max().item()
+    for f in ("children", "N"):
+        check(torch.equal(getattr(got.tree, f).cpu()[clear], getattr(want_tree, f)[clear]),
+              f"search card-vs-cpu: tree.{f} differs on an env with clear gaps")
+    check(torch.allclose(got.tree.W.cpu()[clear], want_tree.W[clear], **w_tol),
+          f"search card-vs-cpu: W max |diff| {w_err}")
+    check(torch.allclose(got.root_N.cpu()[clear], want.root_N[clear], **G_TOL),
+          "search card-vs-cpu: root_N out of tolerance")
+    check(torch.allclose(got.root_Qpi.cpu(), want.root_Qpi, **NET_TOL),
+          "search card-vs-cpu: root_Qpi out of tolerance")
+    for f in ("actions", "lengths", "repeats_done", "states_explored", "depth_capped"):
+        check(torch.equal(getattr(got, f).cpu()[clear], getattr(want, f)[clear]),
+              f"search card-vs-cpu: {f} differs on an env with clear gaps")
+    print(f"[search card-vs-cpu] B={B}, {p.repeats} iterations, injected noise, TF32 off: "
+          f"{int(clear.sum())} of {B} envs have every selection gap above {PROB_MARGIN}; on "
+          f"them children, N, the plan and the counters are equal and W is within "
+          f"{w_err:.3e} (atol {w_tol['atol']}); root_Qpi within "
+          f"{(got.root_Qpi.cpu() - want.root_Qpi).abs().max().item():.3e}", flush=True)
+
+
+def profile_planner(torch, dev, trace_dir) -> None:
+    """Two planner iterations at the planner phase's env count, unfused and
+    fused, from a search already ten iterations deep."""
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+
+    agent, frames = planner_inputs(torch, dev, MCTS_ENVS)
+    for tag, fused in (("unfused", False), ("fused", True)):
+        # A threshold no env reaches: no iteration is masked out.
+        p = mcts_lib.MCTSParams(repeats=MCTS_REPEATS, simulation_depth=3, threshold=1.1,
+                                max_depth=MCTS_MAX_DEPTH, fused_eval=fused)
+        with torch.inference_mode():
+            carry = mcts_lib._init_search(agent, frames, p, (0,))
+            mcts_lib._run_search(agent, carry, p, 10)
+
+            def run():
+                mcts_lib._run_search(agent, carry, p, carry.i + 2)
+
+            profile_report(torch, f"planner, {tag}, {MCTS_ENVS} envs x 2 iterations "
+                           f"(from iteration 12)", run,
+                           trace_dir and Path(trace_dir) / f"planner_{tag}_trace.json")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
-                        help="Profile two ai macro steps after the sweep phase and two "
-                        "training rounds after the training phase.")
+                        help="Profile two ai macro steps after the sweep phase, two training "
+                        "rounds after the training phase and two planner iterations after "
+                        "the planner phase.")
     parser.add_argument("--trace-dir", default="",
                         help="With --profile: write the chrome traces here.")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not (ROOT / PACKAGE).is_dir():
         fail(f"{PACKAGE}/ not found beside chip_smoke.py")
     sys.path.insert(0, str(ROOT))
@@ -627,7 +1054,16 @@ def main() -> None:
     phase_card_vs_cpu(torch, dev)
     phase_round_card_vs_cpu(torch, dev)
 
-    # ---- 6. result lines -------------------------------------------------
+    # ---- 6. the planner path at full width --------------------------------
+    phase_planner_mechanics(torch, dev)
+    runs.update(phase_mcts_sweeps(torch, smi))
+    LAUNCHES.clear()
+    phase_reference_budget(torch, dev, smi)
+    phase_search_card_vs_cpu(torch, dev)
+    if args.profile:
+        profile_planner(torch, dev, args.trace_dir)
+
+    # ---- 7. result lines -------------------------------------------------
     # K1's row: the launches of the training run (this system's main path)
     # and the times at its batch; the other paths and sizes beside them.
     for path, launches in runs.items():
@@ -651,6 +1087,8 @@ def main() -> None:
                              for path, launches in runs.items()},
         "by_batch": {str(B): v for B, v in k1.items()},
     }]
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

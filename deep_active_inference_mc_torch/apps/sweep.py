@@ -5,6 +5,11 @@ Scores a controller over thousands of vectorized environments on one card:
     python -m deep_active_inference_mc_torch.apps.sweep \
         -n flagship.npz --method ai --envs 1024 --macro 200
 
+    python -m deep_active_inference_mc_torch.apps.sweep \
+        --method mcts --envs 256 --macro 20 --mcts_fused
+    python -m deep_active_inference_mc_torch.apps.sweep \
+        --method mcts --envs 512 --mcts_bucketed --plan_queue --mcts_c 2
+
 ``-n`` takes a ``.npz`` of the JAX agent's params (README: "Weights");
 without it the agent is a seeded He-uniform init. Prints one result row in
 the JAX CLI's format. ``--device cpu`` runs on the CPU; the default
@@ -22,6 +27,7 @@ import torch
 from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import raster
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+from deep_active_inference_mc_torch.plan.mcts import MCTSParams
 from deep_active_inference_mc_torch.train import sweep as sweep_lib
 from deep_active_inference_mc_torch.utils import convert
 from deep_active_inference_mc_torch.utils.device import resolve_device
@@ -58,12 +64,47 @@ def main(argv=None) -> dict:
     parser.add_argument("--sample_G", action="store_true",
                         help="Sample latents for G instead of means "
                         "(the reference demo's default; pair with --samples 10).")
+    parser.add_argument("--mcts_repeats", type=int, default=50)
+    parser.add_argument("--mcts_depth", type=int, default=3)
+    parser.add_argument("--mcts_c", type=float, default=1.0,
+                        help="Exploration constant C (reference default 1.0).")
+    parser.add_argument("--mcts_prior_explore", action="store_true",
+                        help="Weight the selection bonus by the habit prior "
+                        "Q(pi|s): the reference's using_prior_for_exploration "
+                        "mode (default off there too). Pays off once the habit "
+                        "net is distilled.")
+    parser.add_argument("--mcts_habit", action="store_true",
+                        help="Phase-A habit short-circuit (reference use_habit): "
+                        "skip the search when habit confidence exceeds "
+                        "--mcts_threshold.")
+    parser.add_argument("--mcts_threshold", type=float, default=0.5,
+                        help="Phase A/B decision confidence threshold.")
+    parser.add_argument("--mcts_crn", action="store_true",
+                        help="Common random numbers across actions in node "
+                        "expansions (unfused evaluator only).")
+    parser.add_argument("--mcts_fused", action="store_true",
+                        help="Mega-batched expand+simulate evaluator (same "
+                        "estimators, one pass per network per iteration; "
+                        "plan/mcts.py:_fused_expand_sim).")
+    parser.add_argument("--mcts_bucketed", action="store_true",
+                        help="Host-driven batch-compaction planner: decided envs "
+                        "retire at iteration checkpoints, stragglers re-pack "
+                        "into smaller buckets "
+                        "(plan/mcts.py:make_bucketed_planner). mcts only.")
+    parser.add_argument("--mcts_check_every", type=int, default=16,
+                        help="Bucketed planner: iterations between "
+                        "retire/compaction checks.")
+    parser.add_argument("--mcts_min_bucket", type=int, default=32,
+                        help="Bucketed planner: smallest compaction bucket.")
     parser.add_argument("--plan_queue", action="store_true",
-                        help="Enqueue the EFE action x steps, execute one entry "
-                        "per macro, flush on scoring.")
+                        help="Reference full-plan execution protocol: enqueue "
+                        "the whole MCTS path / the EFE action x steps, execute "
+                        "one entry per macro, flush on scoring. Default: "
+                        "re-plan every macro (first path action only).")
     parser.add_argument("--queue_cap", type=int, default=0,
                         help="With --plan_queue: execute at most this many "
-                        "entries before re-planning (0 = the whole plan).")
+                        "plan entries before re-planning (0 = the whole plan, "
+                        "the reference protocol; 1 = re-plan every macro).")
     parser.add_argument("--chunk", type=int, default=50,
                         help="Macro-steps per chunk (one host sync each).")
     parser.add_argument("--env_chunk", type=int, default=0,
@@ -71,6 +112,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
+    if args.mcts_bucketed and args.method != "mcts":
+        raise SystemExit("--mcts_bucketed requires --method mcts")
 
     device = resolve_device(args.device)
     cfg = Config()
@@ -79,15 +122,30 @@ def main(argv=None) -> dict:
           else "Untrained weights (no -n).")
     lut = raster.build_sprite_lut(device)
 
-    t0 = time.time()
-    out = sweep_lib.run_sweep(
-        agent, cfg, lut, seed=args.seed, n_envs=args.envs,
-        method=args.method, n_macro_steps=args.macro, chunk=args.chunk,
-        env_chunk=args.env_chunk or None, steps=args.steps,
-        samples=args.samples, jumps=args.jumps, temperature=args.temp,
-        calc_mean=not args.sample_G, crn=args.crn,
-        plan_queue=args.plan_queue, queue_cap=args.queue_cap,
+    mcts_params = MCTSParams(
+        repeats=args.mcts_repeats, simulation_depth=args.mcts_depth,
+        max_depth=16, fused_eval=args.mcts_fused, crn=args.mcts_crn,
+        C=args.mcts_c, threshold=args.mcts_threshold,
+        using_prior_for_exploration=args.mcts_prior_explore,
+        use_habit=args.mcts_habit,
     )
+    t0 = time.time()
+    if args.mcts_bucketed:
+        out = sweep_lib.run_sweep_bucketed(
+            agent, cfg, lut, seed=args.seed, n_envs=args.envs,
+            n_macro_steps=args.macro, jumps=args.jumps, mcts_params=mcts_params,
+            check_every=args.mcts_check_every, min_bucket=args.mcts_min_bucket,
+            plan_queue=args.plan_queue, queue_cap=args.queue_cap,
+        )
+    else:
+        out = sweep_lib.run_sweep(
+            agent, cfg, lut, seed=args.seed, n_envs=args.envs,
+            method=args.method, n_macro_steps=args.macro, chunk=args.chunk,
+            env_chunk=args.env_chunk or None, steps=args.steps,
+            samples=args.samples, jumps=args.jumps, temperature=args.temp,
+            calc_mean=not args.sample_G, crn=args.crn, mcts_params=mcts_params,
+            plan_queue=args.plan_queue, queue_cap=args.queue_cap,
+        )
     dt = time.time() - t0
     frames = args.envs * args.macro * args.jumps
     queued = args.plan_queue and args.method in sweep_lib.QUEUE_METHODS

@@ -1,8 +1,9 @@
 """Expected-free-energy (EFE, "G") Monte-Carlo estimators.
 
-Port of ``deep_active_inference_mc_tpu/infer/efe.py`` (the serving half:
-``calculate_G``, ``calculate_G_mean``, ``calculate_G_repeated``,
-``calculate_G_4_repeated``, ``calculate_G_4_repeated_crn``).
+Port of ``deep_active_inference_mc_tpu/infer/efe.py``: the action-prior
+estimators (``calculate_G``, ``calculate_G_mean``, ``calculate_G_repeated``,
+``calculate_G_4_repeated``, ``calculate_G_4_repeated_crn``) and the planner's
+simulation (``calculate_G_given_trajectory``, ``mcts_step_simulate``).
 G = -term0 + term1 + term2:
 
   term0 (a, extrinsic):       reward-strip log-likelihood of imagined frames.
@@ -17,7 +18,8 @@ sample's tensors thread onward, as in the JAX package. G rows of the
 all-actions estimators are ordered (b, a), action fastest.
 
 Noise: each estimator draws all its noise first (a ``GDraws`` per
-evaluation, from the caller's generator) and then computes
+evaluation, a ``SimulateDraws`` per planner simulation, from the caller's
+generator) and then computes
 deterministically, so a caller can inject the draws instead. Only the
 transition's dropout is live; encoder and decoder run deterministic.
 """
@@ -32,6 +34,7 @@ import torch
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.models.networks import reparameterize
 from deep_active_inference_mc_torch.ops import math as m
+from deep_active_inference_mc_torch.utils import random as rnd
 
 
 @dataclasses.dataclass
@@ -85,6 +88,59 @@ def draw_rollout(agent: ActiveInferenceAgent, batch: int, g_rows: int,
         draw_G(agent, rows, generator, device, sampled=not mean_estimator)
         for _ in range(steps)
     ])
+
+
+@dataclasses.dataclass
+class HabitRolloutDraws:
+    """Noise of a ``depth``-step habit rollout over ``rows`` states: the
+    Gumbel noise of each step's action draw (depth, rows, pi_dim), each
+    step's transition keep-masks, and the normal draw of each step's
+    transition sample (depth, rows, s_dim)."""
+
+    gumbel: torch.Tensor
+    masks: List[Sequence[torch.Tensor]]
+    eps: torch.Tensor
+
+
+@dataclasses.dataclass
+class TrajectoryDraws:
+    """Noise of one trajectory G over ``rows`` (time x batch) rows: the
+    fresh theta's keep-masks and the draw of its transition sample, and the
+    fixed-theta draw."""
+
+    masks: Sequence[torch.Tensor]
+    eps: torch.Tensor
+    eps_fixed: torch.Tensor
+
+
+@dataclasses.dataclass
+class SimulateDraws:
+    """Noise of one ``mcts_step_simulate``: the rollout's and its G's."""
+
+    rollout: HabitRolloutDraws
+    trajectory: TrajectoryDraws
+
+
+def draw_habit_rollout(agent: ActiveInferenceAgent, rows: int, depth: int,
+                       generator: torch.Generator, device) -> HabitRolloutDraws:
+    gumbel = rnd.gumbel((depth, rows, agent.pi_dim), generator, device)
+    masks = [agent.mid.draw_masks(rows, generator, device) for _ in range(depth)]
+    eps = torch.randn((depth, rows, agent.s_dim), generator=generator, device=device)
+    return HabitRolloutDraws(gumbel, masks, eps)
+
+
+def draw_trajectory(agent: ActiveInferenceAgent, rows: int,
+                    generator: torch.Generator, device) -> TrajectoryDraws:
+    masks = agent.mid.draw_masks(rows, generator, device)
+    eps, eps_fixed = torch.randn((2, rows, agent.s_dim), generator=generator,
+                                 device=device)
+    return TrajectoryDraws(masks, eps, eps_fixed)
+
+
+def draw_simulate(agent: ActiveInferenceAgent, rows: int, depth: int,
+                  generator: torch.Generator, device) -> SimulateDraws:
+    return SimulateDraws(draw_habit_rollout(agent, rows, depth, generator, device),
+                         draw_trajectory(agent, depth * rows, generator, device))
 
 
 def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -256,3 +312,66 @@ def calculate_G_4_repeated_crn(agent: ActiveInferenceAgent, o: torch.Tensor,
     terms = [torch.stack([c[1][i] for c in cols], dim=1) for i in range(3)]
     po1 = torch.stack([c[2] for c in cols], dim=1)
     return G, terms, po1.reshape((B * A,) + tuple(po1.shape[2:]))
+
+
+def calculate_G_given_trajectory(agent: ActiveInferenceAgent, s0_traj: torch.Tensor,
+                                 ps1_traj: torch.Tensor, ps1_mean_traj: torch.Tensor,
+                                 ps1_logvar_traj: torch.Tensor, pi0_traj: torch.Tensor,
+                                 generator: Optional[torch.Generator] = None,
+                                 draws: Optional[TrajectoryDraws] = None) -> torch.Tensor:
+    """G of a pre-sampled (s, pi) trajectory, row by row. Every ``*_traj``
+    is (N, dim): time and batch may be folded together."""
+    if draws is None:
+        draws = draw_trajectory(agent, s0_traj.shape[0], generator, s0_traj.device)
+    po1 = agent.decode(ps1_traj)
+    _, qs1_logvar = agent.encode(po1)
+    term0 = agent.check_reward(po1)
+    term1 = -_state_entropy(ps1_logvar_traj, qs1_logvar)
+    # Fresh theta, decode the transition SAMPLE (calculate_G_mean decodes
+    # the mean here).
+    ps1_b, _, _ = agent.transition_with_sample(pi0_traj, s0_traj, draws.masks,
+                                               eps=draws.eps)
+    term2_1 = _sum_entropy_bernoulli(agent.decode(ps1_b))
+    term2_2 = _sum_entropy_bernoulli(agent.decode(
+        reparameterize(ps1_mean_traj, ps1_logvar_traj, eps=draws.eps_fixed)))
+    return -term0 + term1 + (term2_1 - term2_2)
+
+
+def habit_rollout(agent: ActiveInferenceAgent, starting_s: torch.Tensor,
+                  draws: HabitRolloutDraws, use_means: bool = False):
+    """Roll the habit policy forward under sampled thetas. Returns the
+    depth-major stacks (s0, ps1, ps1_mean, ps1_logvar, pi one-hot), each
+    (depth, B, dim), and the habit distribution at the first step (B,
+    pi_dim). The sample threads on unless ``use_means``."""
+    s_t = starting_s
+    steps, q_pi0 = [], None
+    for t in range(draws.gumbel.shape[0]):
+        _, q_pi, _ = agent.habit(s_t)
+        if q_pi0 is None:
+            q_pi0 = q_pi
+        a = rnd.categorical(torch.log(q_pi + 1e-20), noise=draws.gumbel[t])
+        pi_t = agent.pi_one_hot[a]
+        ps1, ps1_mean, ps1_logvar = agent.transition_with_sample(
+            pi_t, s_t, draws.masks[t], eps=draws.eps[t])
+        steps.append((s_t, ps1, ps1_mean, ps1_logvar, pi_t))
+        s_t = ps1_mean if use_means else ps1
+    return tuple(torch.stack(x) for x in zip(*steps)) + (q_pi0,)
+
+
+def mcts_step_simulate(agent: ActiveInferenceAgent, starting_s: torch.Tensor, depth: int,
+                       use_means: bool = False,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[SimulateDraws] = None):
+    """Rollout under the habit policy from leaf states, scored by trajectory G.
+    starting_s: (B, s_dim). Returns (G, pi0_traj, Qpi_root): G (B,) the
+    mean over depth of the trajectory's rows, pi0_traj (depth, B, pi_dim)
+    one-hot, Qpi_root (B, pi_dim) the habit output of the first step."""
+    B = starting_s.shape[0]
+    if draws is None:
+        draws = draw_simulate(agent, B, depth, generator, starting_s.device)
+    s0_tr, ps1_tr, mean_tr, logvar_tr, pi_tr, q_pi0 = habit_rollout(
+        agent, starting_s, draws.rollout, use_means)
+    G_rows = calculate_G_given_trajectory(
+        agent, s0_tr.flatten(0, 1), ps1_tr.flatten(0, 1), mean_tr.flatten(0, 1),
+        logvar_tr.flatten(0, 1), pi_tr.flatten(0, 1), draws=draws.trajectory)
+    return G_rows.reshape(depth, B).mean(dim=0), pi_tr, q_pi0

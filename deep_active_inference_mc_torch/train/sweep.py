@@ -1,27 +1,33 @@
 """Batched policy evaluation: score a controller over vectorized envs.
 
 Port of ``deep_active_inference_mc_tpu/train/sweep.py`` (``make_sweep``,
-``run_sweep``, ``_run_macro_chunks``). Each macro step renders every env
-(kernel K1 on a card), picks one action per env, and executes it
-``jumps`` times with the scoring-abort rule. Controllers:
+``run_sweep``, ``_run_macro_chunks``, ``run_sweep_bucketed``). Each macro
+step renders every env (kernel K1 on a card), picks one action per env,
+and executes it ``jumps`` times with the scoring-abort rule. Controllers:
 
   ai      softmax(-G/T) over the 4 single-step EFE estimates
   t1      reward-term-only agent
   t12     terms a+b agent
   habit   habitual network
+  mcts    batched array-MCTS, first action of the planned path
   random  uniform actions (baseline)
   expert  ground-truth policy (upper bound)
 
-``plan_queue`` runs ai/t1/t12 under the reference demo's plan-execution
-protocol: the sampled action is enqueued ``steps`` macro steps deep (at
-most ``queue_cap`` when set), one entry executes per macro step, and a
-scoring event flushes the queue. Planning still runs every macro step for
-the whole batch; only envs whose queue ran out adopt the new plan.
+``plan_queue`` runs mcts/ai/t1/t12 under the reference demo's
+plan-execution protocol: the whole trimmed MCTS path (or the EFE agent's
+sampled action ``steps`` deep) is enqueued, at most ``queue_cap`` entries
+when set, one entry executes per macro step, and a scoring event flushes
+the queue. In ``make_sweep`` planning still runs every macro step for the
+whole batch and only envs whose queue ran out adopt the new plan;
+``run_sweep_bucketed`` plans only for those envs.
 
 Randomness: one ``torch.Generator`` per macro chunk, seeded from
 ``(seed, 1, chunk)`` (``(seed, 1, 10000 + group, chunk)`` per env group),
-and one seeded from ``(seed, 0)`` for the initial envs. Everything runs
-under ``torch.inference_mode()``; the host syncs once per chunk.
+and one seeded from ``(seed, 0)`` for the initial envs. The planner of
+macro step ``t`` of a chunk is seeded from that generator's seed and ``t``.
+Everything runs under ``torch.inference_mode()``; ``make_sweep``'s host
+syncs once per chunk (and, under mcts, where the planner reads its done
+flag).
 """
 
 from __future__ import annotations
@@ -29,29 +35,33 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import dsprites as env_lib
 from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 from deep_active_inference_mc_torch.utils import random as rnd
 from deep_active_inference_mc_torch.utils.device import seeded_generator
 
-METHODS = ("ai", "t1", "t12", "habit", "random", "expert")
-QUEUE_METHODS = ("ai", "t1", "t12")
-_ENV_STREAM, _RUN_STREAM = 0, 1
+METHODS = ("ai", "t1", "t12", "habit", "mcts", "random", "expert")
+QUEUE_METHODS = ("mcts", "ai", "t1", "t12")
+_ENV_STREAM, _RUN_STREAM, _PLAN_STREAM = 0, 1, 2
 
 
 @dataclasses.dataclass
 class MacroDraws:
     """Noise of one macro step, for injection: the Gumbel noise of the
     action draw (B, pi_dim), the respawn latents of each repeat
-    (jumps, B, 6) and, for ai/t1/t12, the G rollout's draws."""
+    (jumps, B, 6) and, for ai/t1/t12, the G rollout's draws; for mcts the
+    search's (and no Gumbel noise: the planner's action is not sampled)."""
 
-    gumbel: torch.Tensor
+    gumbel: Optional[torch.Tensor]
     respawns: torch.Tensor
     rollout: Optional[efe.RolloutDraws] = None
+    search: Optional[mcts_lib.SearchDraws] = None
 
 
 def _efe_score(agent, generator, o, method, steps, samples, calc_mean, crn,
@@ -76,11 +86,27 @@ def _efe_score(agent, generator, o, method, steps, samples, calc_mean, crn,
     return -(t0 + t1)
 
 
+def _mcts_plan(agent, o, mcts_params, seed_path, draws):
+    """The planner's trimmed path with the visit-max root action in place
+    of an empty one (the demo would simply re-plan next frame):
+    ((B, max_depth) actions, (B,) lengths >= 1)."""
+    res = mcts_lib.active_inference_mcts(
+        agent, o, mcts_params, seed_path, draws=None if draws is None else draws.search)
+    actions = res.actions.clone()
+    actions[:, 0] = torch.where(res.lengths > 0, actions[:, 0],
+                                torch.argmax(res.root_N, dim=-1))
+    return actions, torch.clamp(res.lengths, min=1)
+
+
 def _controller_actions(agent, generator, o, env, method, steps, samples,
-                        temperature, calc_mean, crn=False, draws=None):
+                        temperature, mcts_params, calc_mean, crn=False, draws=None,
+                        seed_path=None):
     """One decision per env: (B,) actions in agent space (env space for
-    the expert). Every controller samples by Gumbel-max; the random
-    baseline over equal logits."""
+    the expert). mcts takes the first action of its plan; every other
+    controller samples by Gumbel-max, the random baseline over equal
+    logits."""
+    if method == "mcts":
+        return _mcts_plan(agent, o, mcts_params, seed_path, draws)[0][:, 0]
     if method == "random":
         logits = torch.zeros((env.batch, agent.pi_dim), device=env.device)
     elif method == "expert":
@@ -94,10 +120,43 @@ def _controller_actions(agent, generator, o, env, method, steps, samples,
     return rnd.categorical(logits, generator, None if draws is None else draws.gumbel)
 
 
+def _controller_plan(agent, generator, o, env, method, steps, samples, temperature,
+                     mcts_params, calc_mean, crn=False, draws=None, seed_path=None):
+    """One decision per env as a plan: ((B, width) actions, (B,) lengths).
+    mcts: the trimmed visit-max path. ai/t1/t12: the sampled action
+    ``steps`` wide."""
+    if method == "mcts":
+        return _mcts_plan(agent, o, mcts_params, seed_path, draws)
+    a = _controller_actions(agent, generator, o, env, method, steps, samples,
+                            temperature, mcts_params, calc_mean, crn, draws)
+    return a[:, None].expand(-1, max(steps, 1)), torch.full_like(a, steps)
+
+
 def _render_fn(lut, resolution: int, channels: int):
     if resolution != 64 or channels != 1:
         return lambda env: env_lib.render_obs(lut, env, resolution, channels)
     return lambda env: env_lib.render(lut, env)
+
+
+def _step_and_tally(env, a_env, jumps: int, generator, respawns=None):
+    """Execute env-space actions ``jumps`` times: (env, scored, tallies).
+    Tallies: scoring events (all, squares, others), the score gained on
+    squares and on others, and the fleet-mean cumulative score after."""
+    # The shape at macro start is the shape that scores this macro: a
+    # respawn freezes the env for the rest of the macro.
+    is_sq = env.latents[..., 1] == 0
+    score0 = env.score
+    env, scored = env_lib.step_repeated(env, a_env, jumps, generator, respawns)
+    delta = env.score - score0
+    tallies = torch.stack([
+        scored.sum().to(torch.float32),
+        (scored & is_sq).sum().to(torch.float32),
+        (scored & ~is_sq).sum().to(torch.float32),
+        torch.where(is_sq, delta, 0.0).sum(),
+        torch.where(~is_sq, delta, 0.0).sum(),
+        env.score.mean(),
+    ])
+    return env, scored, tallies
 
 
 def make_sweep(
@@ -110,9 +169,11 @@ def make_sweep(
     samples: int = 1,
     jumps: int = 5,
     temperature: float = 1.0,
+    mcts_params: Optional[mcts_lib.MCTSParams] = None,
     calc_mean: bool = True,
     zero_score: bool = True,
     crn: bool = False,
+    record_traj: bool = False,
     plan_queue: bool = False,
     queue_cap: int = 0,
 ):
@@ -120,13 +181,18 @@ def make_sweep(
 
     ``zero_score=False`` continues a prior chunk's score. calc_mean=True
     is the reference demo's ``--mean`` evaluation mode; calc_mean=False
-    with samples=10 is its sampling default. With ``plan_queue`` (ai/t1/
-    t12) the result carries ``"qstate"`` = (queue, qlen, qpos) for the
-    next chunk."""
+    with samples=10 is its sampling default. With ``plan_queue`` (mcts/ai/
+    t1/t12) the result carries ``"qstate"`` = (queue, qlen, qpos) for the
+    next chunk. ``record_traj`` adds ``"score_traj"``, the fleet-mean
+    score after each macro step."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
+    if mcts_params is None:
+        mcts_params = mcts_lib.MCTSParams(repeats=50, max_depth=16)
     use_queue = plan_queue and method in QUEUE_METHODS
-    q_cap = max(steps, 1)
+    # queue_cap > 0 bounds commitment: how much of each plan executes
+    # before re-planning (1: re-plan every macro step; 0: the whole plan).
+    q_cap = mcts_params.max_depth if method == "mcts" else max(steps, 1)
     if queue_cap:
         q_cap = min(q_cap, queue_cap)
     render_fn = _render_fn(lut, cfg.resolution, cfg.colour_channels)
@@ -136,20 +202,7 @@ def make_sweep(
         # baseline) act in agent space.
         if method != "expert":
             a = env_lib.to_env_actions(a, agent.pi_dim)
-        # The shape at macro start is the shape that scores this macro:
-        # a respawn freezes the env for the rest of the macro.
-        is_sq = env.latents[..., 1] == 0
-        score0 = env.score
-        env, scored = env_lib.step_repeated(env, a, jumps, generator, respawns)
-        delta = env.score - score0
-        tallies = torch.stack([
-            scored.sum().to(torch.float32),
-            (scored & is_sq).sum().to(torch.float32),
-            (scored & ~is_sq).sum().to(torch.float32),
-            torch.where(is_sq, delta, 0.0).sum(),
-            torch.where(~is_sq, delta, 0.0).sum(),
-        ])
-        return env, scored, tallies
+        return _step_and_tally(env, a, jumps, generator, respawns)
 
     def init_qstate(n_envs: int, device):
         z = lambda *shape: torch.zeros(shape, dtype=torch.long, device=device)
@@ -167,14 +220,17 @@ def make_sweep(
         for t in range(n_macro_steps):
             d = None if draws is None else draws[t]
             o = render_fn(env)
-            a = _controller_actions(agent, generator, o, env, method, steps,
-                                    samples, temperature, calc_mean, crn, d)
+            # The planner's seeds: this chunk's seed and the macro step.
+            seed_path = None if generator is None else (generator.initial_seed(), t)
+            decision = (agent, generator, o, env, method, steps, samples, temperature,
+                        mcts_params, calc_mean, crn, d, seed_path)
             respawns = None if d is None else d.respawns
             if use_queue:
+                new_q, new_len = _controller_plan(*decision)
                 queue, qlen, qpos = qstate
                 need = qpos >= qlen
-                queue = torch.where(need[:, None], a[:, None], queue)
-                qlen = torch.where(need, min(steps, q_cap), qlen)
+                queue = torch.where(need[:, None], new_q[:, :q_cap], queue)
+                qlen = torch.where(need, torch.clamp(new_len, max=q_cap), qlen)
                 qpos = torch.where(need, 0, qpos)
                 a = torch.gather(queue, 1, qpos[:, None])[:, 0]
                 qpos = qpos + 1
@@ -183,10 +239,11 @@ def make_sweep(
                 # now-respawned object.
                 qstate = (queue, qlen, torch.where(scored, qlen, qpos))
             else:
+                a = _controller_actions(*decision)
                 env, _, tallies = macro_step(generator, env, a, respawns)
             rows.append(tallies)
         tallies = torch.stack(rows).cpu()  # the chunk's one host sync
-        ev_all, ev_sq, ev_oth, r_sq, r_oth = tallies.unbind(1)
+        ev_all, ev_sq, ev_oth, r_sq, r_oth, score_t = tallies.unbind(1)
         out = _score_stats(env.score)
         n = env.batch
         out.update({
@@ -197,6 +254,8 @@ def make_sweep(
             "score_other": float(r_oth.sum()) / n,
             "env": env,
         })
+        if record_traj:
+            out["score_traj"] = score_t
         if use_queue:
             out["qstate"] = qstate
         return out
@@ -225,6 +284,7 @@ def _run_macro_chunks(sweeps, path, env, lengths):
     """Drive one env batch through the macro chunks; chunk i draws from a
     generator seeded from ``path + (i,)``."""
     acc = {k: 0.0 for k in _ACC_KEYS}
+    trajs = []
     out = None
     qstate = None
     for i, n in enumerate(lengths):
@@ -233,8 +293,12 @@ def _run_macro_chunks(sweeps, path, env, lengths):
         qstate = out.get("qstate")
         for k in _ACC_KEYS:
             acc[k] += out[k]
+        if "score_traj" in out:
+            trajs.append(out["score_traj"])
     out = dict(out)
     out.update(acc)
+    if trajs:
+        out["score_traj"] = torch.cat(trajs)
     return out
 
 
@@ -291,4 +355,103 @@ def run_sweep(
         vals = [o[k] for o in outs]
         # score_sq/score_other are per-env means over equal-sized groups.
         merged[k] = sum(vals) / len(vals) if k.startswith("score") else sum(vals)
+    if "score_traj" in outs[0]:
+        # Equal-sized groups: the fleet-mean trajectory is the mean of theirs.
+        merged["score_traj"] = torch.stack([o["score_traj"] for o in outs]).mean(dim=0)
     return merged
+
+
+@torch.inference_mode()
+def run_sweep_bucketed(
+    agent: ActiveInferenceAgent,
+    cfg: Config,
+    lut: torch.Tensor,
+    seed: int = 0,
+    n_envs: int = 256,
+    n_macro_steps: int = 100,
+    jumps: int = 5,
+    mcts_params: Optional[mcts_lib.MCTSParams] = None,
+    check_every: int = 16,
+    min_bucket: int = 32,
+    plan_queue: bool = False,
+    queue_cap: int = 0,
+) -> Dict:
+    """MCTS sweep on the bucketed (batch-compaction) planner.
+
+    The planner is host-driven (``mcts_lib.make_bucketed_planner``), so the
+    macro loop runs at host level, with a host sync per macro step. Output
+    keys match ``run_sweep``, plus ``"bucket_traces"``: each plan's bucket
+    sizes.
+
+    ``plan_queue`` runs the full-plan protocol with a host-side queue, and
+    plans (and renders) only for the envs whose queue ran out, gathered and
+    padded to a power-of-two bucket: commitment here cuts planning time by
+    the mean plan length."""
+    if mcts_params is None:
+        mcts_params = mcts_lib.MCTSParams(repeats=50, max_depth=16)
+    plan = mcts_lib.make_bucketed_planner(agent, mcts_params, check_every=check_every,
+                                          min_bucket=min_bucket)
+    render_fn = _render_fn(lut, cfg.resolution, cfg.colour_channels)
+    device = lut.device
+
+    def apply_actions(generator, env, a):
+        a_env = env_lib.to_env_actions(torch.as_tensor(a, device=device), agent.pi_dim)
+        return _step_and_tally(env, a_env, jumps, generator)
+
+    def plan_actions(res, m):
+        """Host copies of the first ``m`` plans, an empty one replaced by
+        the visit-max root action: ((m, max_depth) actions, (m,) lengths)."""
+        actions = res.actions[:m].cpu().numpy()
+        lengths = res.lengths[:m].cpu().numpy()
+        root_best = res.root_N[:m].cpu().numpy().argmax(-1)
+        empty = lengths <= 0
+        actions[empty, 0] = root_best[empty]
+        return actions, np.maximum(lengths, 1)
+
+    g_env = seeded_generator(device, seed, _ENV_STREAM)
+    env = env_lib.randomize(env_lib.reset(g_env, n_envs, device), g_env)
+    env = env.replace(score=torch.zeros_like(env.score))
+    acc = np.zeros(5)
+    buckets = []
+    queue = np.zeros((n_envs, mcts_params.max_depth), np.int64)
+    qlen = np.zeros(n_envs, np.int64)
+    qpos = np.zeros(n_envs, np.int64)
+    for i in range(n_macro_steps):
+        g_step = seeded_generator(device, seed, _RUN_STREAM, i)
+        plan_seed = (seed, _PLAN_STREAM, i)
+        if plan_queue:
+            need = np.nonzero(qpos >= qlen)[0]
+            if need.size:
+                # The needing envs' frames, padded to a power-of-two bucket
+                # (planner rows are independent; pad rows are discarded).
+                pad = max(min_bucket, 1 << max(int(need.size) - 1, 0).bit_length())
+                sel = np.concatenate([need, np.repeat(need[:1], pad - need.size)])
+                o = render_fn(env).index_select(0, torch.as_tensor(sel, device=device))
+                res = plan(o, plan_seed)
+                buckets.append(plan.bucket_trace)
+                actions, lengths = plan_actions(res, need.size)
+                queue[need] = actions
+                qlen[need] = np.minimum(lengths, queue_cap) if queue_cap else lengths
+                qpos[need] = 0
+            a = queue[np.arange(n_envs), qpos]
+            qpos += 1
+            env, scored, tallies = apply_actions(g_step, env, a)
+            # Scoring flushes the plan queue.
+            qpos = np.where(scored.cpu().numpy(), qlen, qpos)
+        else:
+            res = plan(render_fn(env), plan_seed)
+            buckets.append(plan.bucket_trace)
+            a = plan_actions(res, n_envs)[0][:, 0]
+            env, _, tallies = apply_actions(g_step, env, a)
+        acc += tallies[:5].double().cpu().numpy()
+    out = _score_stats(env.score)
+    out.update({
+        "scoring_events": float(acc[0]),
+        "events_sq": float(acc[1]),
+        "events_other": float(acc[2]),
+        "score_sq": float(acc[3]) / n_envs,
+        "score_other": float(acc[4]) / n_envs,
+        "env": env,
+        "bucket_traces": buckets,
+    })
+    return out

@@ -1,5 +1,6 @@
 """PyTorch port: the hand-written CUDA kernels against their plain PyTorch
-versions on a card, and the training round and checkpoint on a card.
+versions on a card, and the training round, the checkpoint and the MCTS
+sweeps on a card.
 Marked ``cuda``; without a card they skip. The file
 imports no JAX, so it also runs where JAX is absent:
 
@@ -16,6 +17,8 @@ from deep_active_inference_mc_torch.envs import raster as traster
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
 from deep_active_inference_mc_torch.ops.cuda import render as k_render
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+from deep_active_inference_mc_torch.plan.mcts import MCTSParams
+from deep_active_inference_mc_torch.train import sweep as sweep_lib
 from deep_active_inference_mc_torch.train import loop as train_loop
 from deep_active_inference_mc_torch.utils import checkpoint as ckpt
 from deep_active_inference_mc_torch.utils import stats as stats_lib
@@ -111,3 +114,27 @@ def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
                        torch.rand(8, generator=gen, device=cuda_device))
     restored, metrics = round_fn(restored, gen2)
     assert bool(torch.isfinite(metrics["F_down"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_mcts_sweep_on_card_renders_once_per_macro(cuda_device, bucketed):
+    """The planner's sweeps on a card: one K1 launch per macro step and
+    finite scores, still on the card."""
+    cfg = Config()
+    agent = ActiveInferenceAgent().init(torch.Generator().manual_seed(0)).to(cuda_device)
+    lut = traster.build_sprite_lut(cuda_device)
+    p = MCTSParams(repeats=4, simulation_depth=2, max_depth=8)
+
+    def run():
+        if bucketed:
+            return sweep_lib.run_sweep_bucketed(agent, cfg, lut, seed=3, n_envs=32,
+                                                n_macro_steps=2, mcts_params=p, min_bucket=8)
+        return sweep_lib.run_sweep(agent, cfg, lut, seed=3, n_envs=32, n_macro_steps=2,
+                                   method="mcts", mcts_params=p)
+
+    before = LAUNCHES["render"]
+    out = run()
+    assert LAUNCHES["render"] == before + 2
+    assert out["scores"].is_cuda and bool(torch.isfinite(out["scores"]).all())
+    assert out["env"].latents.shape == (32, 6)

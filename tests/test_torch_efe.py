@@ -8,6 +8,9 @@ net from its ``params["mid"]`` Dense kernels (``jax_transition``), and
 Tolerance rtol 1e-4 / atol 1e-2, as in tests/test_efe.py (G sums ~4k
 Bernoulli entropies, so f32 reduction order moves it by ~1e-3). Without
 injection, the two packages' own random draws agree in distribution.
+The planner's two functions (``calculate_G_given_trajectory``,
+``mcts_step_simulate``) run against the JAX functions themselves, their
+noise rebuilt from the key with the helpers of tests/test_torch_losses.py.
 """
 
 import functools
@@ -24,6 +27,7 @@ from deep_active_inference_mc_torch.envs import dsprites as tenv
 from deep_active_inference_mc_torch.envs import raster as traster
 from deep_active_inference_mc_torch.infer import efe as tefe
 from deep_active_inference_mc_torch.utils.device import seeded_generator
+from test_torch_losses import jax_mid_draws, jax_normal, t
 from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
 from test_torch_models import jax_flagship, jax_transition, torch_agent
 
@@ -261,3 +265,93 @@ def test_G4_mc_means_agree_with_jax(flagship, calc_mean):
     z = np.abs(G_t.mean(0) - G_j.mean(0)) / se
     assert (z < 4.0).all(), z
     assert (G_t.std(0) > 0).all()
+
+
+# ------------------------------------------- the planner's simulation and G
+def jax_habit_rollout_draws(ja, jp, k_scan, rows, depth):
+    """HabitRolloutDraws of the rollout scan under ``k_scan`` (efe.py:356-368)."""
+    steps = []
+    for k in jax.random.split(k_scan, depth):
+        k_pi, k_trans = jax.random.split(k)
+        steps.append((t(jax.random.gumbel(k_pi, (rows, 4))), jax_mid_draws(ja, jp, k_trans, rows)))
+    return tefe.HabitRolloutDraws(torch.stack([g for g, _ in steps]),
+                                  [d.masks for _, d in steps],
+                                  torch.stack([d.eps for _, d in steps]))
+
+
+def jax_trajectory_draws(ja, jp, key, rows):
+    """TrajectoryDraws of ``calculate_G_given_trajectory(key)`` (efe.py:312)."""
+    _, k2, _, k4 = jax.random.split(key, 4)
+    fresh = jax_mid_draws(ja, jp, k2, rows)
+    return tefe.TrajectoryDraws(fresh.masks, fresh.eps, jax_normal(k4, rows))
+
+
+def jax_simulate_draws(ja, jp, key, rows, depth):
+    """SimulateDraws of ``mcts_step_simulate(key)`` (efe.py:354)."""
+    k_scan, k_G = jax.random.split(key)
+    return tefe.SimulateDraws(jax_habit_rollout_draws(ja, jp, k_scan, rows, depth),
+                              jax_trajectory_draws(ja, jp, k_G, depth * rows))
+
+
+def test_G_given_trajectory_matches_jax(flagship):
+    """Row by row on a random trajectory of 12 rows; and term2_1 decodes
+    the transition sample: zeroing that draw (the mean) moves G."""
+    ja, jp, ta = flagship
+    N = 12
+    rng = np.random.default_rng(30)
+    s0, ps1, mean, logvar = (rng.standard_normal((N, S_DIM)).astype(np.float32) * 0.5
+                             for _ in range(4))
+    pi = np.eye(4, dtype=np.float32)[rng.integers(0, 4, N)]
+    key = jax.random.key(31)
+    want = jax.jit(functools.partial(jefe.calculate_G_given_trajectory, ja))(
+        jp, key, s0, ps1, mean, logvar, pi)
+    draws = jax_trajectory_draws(ja, jp, key, N)
+    args = [torch.from_numpy(x) for x in (s0, ps1, mean, logvar, pi)]
+    with torch.inference_mode():
+        got = tefe.calculate_G_given_trajectory(ta, *args, draws=draws)
+        of_mean = tefe.calculate_G_given_trajectory(ta, *args, draws=tefe.TrajectoryDraws(
+            draws.masks, torch.zeros_like(draws.eps), draws.eps_fixed))
+    assert got.shape == (N,)
+    close(got, want)
+    assert (got - of_mean).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("use_means", [False, True])
+def test_mcts_step_simulate_matches_jax(flagship, use_means):
+    """G (the mean over depth of depth-major rows), the one-hot trajectory
+    (equal) and Qpi_root (the habit output of the first step). The rollout
+    threads the transition sample unless ``use_means``."""
+    ja, jp, ta = flagship
+    B, depth = 5, 3
+    s = np.random.default_rng(32).standard_normal((B, S_DIM)).astype(np.float32) * 0.5
+    key = jax.random.key(33)
+    G_j, pi_j, q_j = jax.jit(functools.partial(
+        jefe.mcts_step_simulate, ja, depth=depth, use_means=use_means))(jp, key, s)
+    draws = jax_simulate_draws(ja, jp, key, B, depth)
+    with torch.inference_mode():
+        G, pi_tr, q = tefe.mcts_step_simulate(ta, torch.from_numpy(s), depth,
+                                              use_means=use_means, draws=draws)
+        _, q_first, _ = ta.habit(torch.from_numpy(s))
+    assert G.shape == (B,) and pi_tr.shape == (depth, B, 4)
+    close(G, G_j)
+    np.testing.assert_array_equal(pi_tr.numpy(), np.asarray(pi_j))
+    close(q, q_j, rtol=1e-5, atol=1e-6)
+    assert torch.equal(q, q_first)
+
+
+def test_mcts_step_simulate_own_draws_agree_with_jax(flagship):
+    """Each package's own random draws: over 64 replicas of one leaf the
+    mean of G agrees within 4 standard errors."""
+    ja, jp, ta = flagship
+    R = 64
+    s = np.tile(np.random.default_rng(34).standard_normal((1, S_DIM)).astype(np.float32) * 0.5,
+                (R, 1))
+    with torch.inference_mode():
+        G_t, _, _ = tefe.mcts_step_simulate(ta, torch.from_numpy(s), 3,
+                                            generator=seeded_generator("cpu", 35))
+    G_j, _, _ = jax.jit(functools.partial(jefe.mcts_step_simulate, ja, depth=3))(
+        jp, jax.random.key(35), s)
+    G_t, G_j = G_t.numpy(), np.asarray(G_j)
+    se = np.sqrt(G_t.var(ddof=1) / R + G_j.var(ddof=1) / R)
+    assert abs(G_t.mean() - G_j.mean()) / se < 4.0
+    assert G_t.std() > 0
