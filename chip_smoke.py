@@ -14,9 +14,10 @@ Phases (any failure exits non-zero and prints no result):
   2. kernel K1 (frame render) against its plain PyTorch version, bit for
      bit (tolerance 0) at every batch the paths give it (256 and 512
      planner sweeps, 512 training rounds and sweeps, 1000 eval frames, 1024
-     sweep envs, and the edge probe's own 96 latents with no reward shown)
-     and at 1, 33 and 4096; at
-     1 (the floor of the timing method), 256, 512, 1024 and 4096 the
+     sweep envs, 2048 distillation replay rows, and the edge probe's own
+     96 latents with no reward shown) and at 1, 33 and 4096; at
+     1 (the floor of the timing method and the demo's batch), 256, 512,
+     1024, 2048 and 4096 the
      device time of one call of each (median of 100 calls queued behind a
      sleep kernel, after a discarded pass of the same and a burst of work
      that raises the clocks, CUDA events around each call, L2 evicted
@@ -58,9 +59,33 @@ Phases (any failure exits non-zero and prints no result):
      step, plans/s, ms per planner iteration, repeats_done, depth_capped,
      peak memory and K1's launches, which must equal the macro steps that
      planned.
-  7. one JSON line describing every hand-written kernel, the card's
+  8. MCTS-visit distillation at full width: the distillation CLI on phase
+     4's checkpoint at its defaults (256 envs, 100 repeats, expand_k 4,
+     fused, batch 2048, 4 passes), depth cut to 2 iterations of 8
+     decisions (2048 records: one 2048-row replay step per pass) and
+     10-step habit readouts on 512 envs. Checks: every plan, mid and down
+     and their Adams bit-equal to the checkpoint's, the top Adam at 4 steps
+     per iteration, K1's launches = 8 per collect + 4 per iteration + one
+     per readout macro step. Prints ms per collect, plans/s of the collect,
+     ms per replay step and peak memory. Then the trainer with
+     ``--distill_every 1 --distill_macro 2`` for one epoch: the phase runs
+     before the save and fills the distill series.
+  9. the demo: ``--headless 100`` (one round) on the distilled checkpoint
+     for ``habit``, ``ai`` (7 steps, 10 samples) and ``mcts`` (300
+     repeats, depth 3). Checks: a finite score trace, K1's launches = the
+     plans made. Prints frames/s and plans per round.
+ 10. the causal trainer CLI at batch 512 (test size 1000, 20 rounds, 2
+     epochs, then ``--resume`` for a third). Checks: finite stats, F
+     falling from epoch 1 to 3, 2 K1 launches per round and 2 per eval,
+     the figures drawn every epoch. Prints ms per round and peak memory.
+ 11. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
+
+From phase 4 on, the port's figure functions (``viz/``) are recorders: the
+card's machine has no matplotlib, PIL or scikit-learn. Each
+recorder checks what it is given (finite arrays of the right shapes, frames
+in [0, 1], the traversal's decoder on the card) and counts its calls.
 """
 
 from __future__ import annotations
@@ -106,9 +131,17 @@ PROB_MARGIN = 1e-2  # a selection argmax is compared only above this top-two gap
 # K1 is held to its plain version at every batch the two paths give it
 # (the edge probe's 96 rows are a case of their own in phase_render) and at
 # a 1-env, an odd and a large one; timed where a path spends its launches.
+# The distillation phase: the CLI's defaults (256 envs, 100 repeats, expand_k
+# 4, batch 2048, 4 passes), depth cut.
+DISTILL_ITERS = 2  # the CLI's default is 20
+DISTILL_MACRO = 8  # 40: 8 x 256 = 2048 records, one 2048-row replay step per pass
+DISTILL_SWEEP_STEPS = 10  # the readout's default is 100
+DISTILL_BATCH = 2048
+DEMO_REPEATS = 300  # the demo's default
 RENDER_CHECK_B = sorted({1, 33, MCTS_ENVS, TRAIN_BATCH, TRAIN_SWEEP_ENVS, LADDER_ENVS,
-                         TRAIN_TEST_SIZE, SWEEP_ENVS, 4096})
-RENDER_TIME_B = (1, MCTS_ENVS, TRAIN_BATCH, SWEEP_ENVS, 4096)  # B=1: the timing method's floor
+                         TRAIN_TEST_SIZE, SWEEP_ENVS, DISTILL_BATCH, 4096})
+# B=1: the timing method's floor and the demo's batch.
+RENDER_TIME_B = (1, MCTS_ENVS, TRAIN_BATCH, SWEEP_ENVS, DISTILL_BATCH, 4096)
 TRAIN_FLAGS = ["--crn", "--gen_mean", "--explore_eps", "0.1", "--edge_frac", "0.3",
                "--gen_habit_mix", "0.5"]
 EVAL_RENDERS = 5  # K1 launches of one eval pass: 4 at test_size, the edge probe's 96
@@ -409,9 +442,10 @@ def adam_steps(state) -> dict:
             for k, opt in state.opts.items()}
 
 
-def phase_train(torch, smi: str, args) -> dict:
+def phase_train(torch, smi: str, args, out_root: str) -> dict:
     """The training path through the trainer CLI: train, save, archive,
-    resume. Returns K1's launch counts of the two runs."""
+    resume, into ``out_root``. Returns K1's launch counts of the two runs
+    and the run folder."""
     from deep_active_inference_mc_torch.apps import train as train_app
     from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
 
@@ -446,38 +480,37 @@ def phase_train(torch, smi: str, args) -> dict:
           f"{TRAIN_EPOCHS}+1 epochs (3000), {TRAIN_SWEEP_STEPS}-step sweeps (100); widths, "
           f"batch {TRAIN_BATCH} and test_size {TRAIN_TEST_SIZE} are the flagship's; PyTorch's "
           f"defaults (cuDNN may use TF32 for float32 convolutions)")
-    with tempfile.TemporaryDirectory() as out_root:
-        argv = ["--batch", str(TRAIN_BATCH), *TRAIN_FLAGS,
-                "--test_size", str(TRAIN_TEST_SIZE), "--sweep_envs", str(TRAIN_SWEEP_ENVS),
-                "--rounds", str(TRAIN_ROUNDS), "--sweep_steps", str(TRAIN_SWEEP_STEPS),
-                "--save_every", "1", "--archive_every", "2", "--out_root", out_root]
-        torch.cuda.reset_peak_memory_stats()
-        LAUNCHES.clear()
-        first = train_app.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
-        launches_first = dict(LAUNCHES)
-        check(first["start_epoch"] == 1, f"train: started at epoch {first['start_epoch']}")
-        check_run("train", first, launches_first, TRAIN_EPOCHS)
-        steps = adam_steps(first["state"])
-        check(set(steps.values()) == {TRAIN_EPOCHS * TRAIN_ROUNDS},
-              f"train: Adam step counts {steps}")
-        archive = first["folder"] / f"checkpoints_epoch_{TRAIN_EPOCHS}" / "state" / "state.pt"
-        payload = torch.load(archive, map_location="cpu", weights_only=True)
-        check("agent" in payload and "opt_states" not in payload,
-              f"archive {archive.name} holds {sorted(payload)}")
-        live = torch.load(first["folder"] / "checkpoints" / "state" / "state.pt",
-                          map_location="cpu", weights_only=True)
-        check("opt_states" in live, "the live checkpoint lacks the optimizer state")
+    argv = ["--batch", str(TRAIN_BATCH), *TRAIN_FLAGS,
+            "--test_size", str(TRAIN_TEST_SIZE), "--sweep_envs", str(TRAIN_SWEEP_ENVS),
+            "--rounds", str(TRAIN_ROUNDS), "--sweep_steps", str(TRAIN_SWEEP_STEPS),
+            "--save_every", "1", "--archive_every", "2", "--out_root", out_root]
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    first = train_app.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
+    launches_first = dict(LAUNCHES)
+    check(first["start_epoch"] == 1, f"train: started at epoch {first['start_epoch']}")
+    check_run("train", first, launches_first, TRAIN_EPOCHS)
+    steps = adam_steps(first["state"])
+    check(set(steps.values()) == {TRAIN_EPOCHS * TRAIN_ROUNDS},
+          f"train: Adam step counts {steps}")
+    archive = first["folder"] / f"checkpoints_epoch_{TRAIN_EPOCHS}" / "state" / "state.pt"
+    payload = torch.load(archive, map_location="cpu", weights_only=True)
+    check("agent" in payload and "opt_states" not in payload,
+          f"archive {archive.name} holds {sorted(payload)}")
+    live = torch.load(first["folder"] / "checkpoints" / "state" / "state.pt",
+                      map_location="cpu", weights_only=True)
+    check("opt_states" in live, "the live checkpoint lacks the optimizer state")
 
-        LAUNCHES.clear()
-        resumed = train_app.main(argv + ["--resume", "--epochs", str(TRAIN_EPOCHS + 1)])
-        launches_resumed = dict(LAUNCHES)
-        check(resumed["start_epoch"] == TRAIN_EPOCHS + 1,
-              f"resume: started at epoch {resumed['start_epoch']}, want {TRAIN_EPOCHS + 1}")
-        check_run("resume", resumed, launches_resumed, 1)
-        steps = adam_steps(resumed["state"])
-        check(set(steps.values()) == {(TRAIN_EPOCHS + 1) * TRAIN_ROUNDS},
-              f"resume: Adam step counts {steps} do not continue the saved run's")
-        peak = torch.cuda.max_memory_allocated()
+    LAUNCHES.clear()
+    resumed = train_app.main(argv + ["--resume", "--epochs", str(TRAIN_EPOCHS + 1)])
+    launches_resumed = dict(LAUNCHES)
+    check(resumed["start_epoch"] == TRAIN_EPOCHS + 1,
+          f"resume: started at epoch {resumed['start_epoch']}, want {TRAIN_EPOCHS + 1}")
+    check_run("resume", resumed, launches_resumed, 1)
+    steps = adam_steps(resumed["state"])
+    check(set(steps.values()) == {(TRAIN_EPOCHS + 1) * TRAIN_ROUNDS},
+          f"resume: Adam step counts {steps} do not continue the saved run's")
+    peak = torch.cuda.max_memory_allocated()
     nll = resumed["stats"]["mse_o_clean"]
     check(len(nll) == TRAIN_EPOCHS + 1 and all(math.isfinite(v) for v in nll),
           f"mse_o_clean series {nll}")
@@ -487,7 +520,7 @@ def phase_train(torch, smi: str, args) -> dict:
           f"{peak / 2 ** 20:.1f} MiB [{smi}]", flush=True)
     if args.profile:
         profile_rounds(torch, args.trace_dir)
-    return {"train": launches_first, "train_resume": launches_resumed}
+    return {"train": launches_first, "train_resume": launches_resumed}, resumed["folder"]
 
 
 def card_vs_cpu_inputs(torch):
@@ -1001,6 +1034,292 @@ def profile_planner(torch, dev, trace_dir) -> None:
                            trace_dir and Path(trace_dir) / f"planner_{tag}_trace.json")
 
 
+# ------------------------------------------------------------ slice 4
+@contextlib.contextmanager
+def figure_recorders(torch, calls: dict):
+    """The card's machine has no matplotlib, PIL or scikit-learn: while
+    the block runs, the port's figure functions are
+    recorders that check what each call gets (finite arrays of the right
+    shapes, frames in [0, 1]) and count the calls in ``calls``."""
+    import numpy as np
+
+    from deep_active_inference_mc_torch.viz import generate_traversals as traversals_lib
+    from deep_active_inference_mc_torch.viz import reconstructions_plot as recon_lib
+    from deep_active_inference_mc_torch.viz import stats_plot as stats_plot_lib
+
+    def frames_ok(tag, x, n=None):
+        x = np.asarray(x)
+        check(x.ndim == 4 and x.shape[1:3] == (64, 64) and (n is None or x.shape[0] == n),
+              f"{tag}: frames of shape {x.shape}")
+        check(bool(np.isfinite(x).all()) and x.min() >= 0.0 and x.max() <= 1.0,
+              f"{tag}: frames outside [0, 1] or not finite")
+
+    def traversals(decode_fn, s_dim, s_sample, S_real, filenames=(), **kw):
+        s_sample, S_real = np.asarray(s_sample), np.asarray(S_real)
+        check(s_sample.ndim == 2 and s_sample.shape[1] == s_dim
+              and bool(np.isfinite(s_sample).all()), f"traversals: samples {s_sample.shape}")
+        check(S_real.shape == (s_sample.shape[0], 6) and bool(np.isfinite(S_real).all()),
+              f"traversals: factors {S_real.shape}")
+        sweep = np.tile(s_sample.mean(0), (10, 1)).astype(np.float32)
+        sweep[:, 0] = np.linspace(s_sample[:, 0].min(), s_sample[:, 0].max(), 10)
+        frames_ok("traversals decode", decode_fn(sweep), 10)
+        check(len(filenames) == 1, f"traversals: filenames {filenames}")
+        calls["generate_traversals"] = calls.get("generate_traversals", 0) + 1
+
+    def reconstructions(o0, o1, po1, filename, colour=False):
+        for tag, x in (("o0", o0), ("o1", o1), ("po1", po1)):
+            frames_ok(f"reconstructions {tag}", x, 7)
+        calls["reconstructions_plot"] = calls.get("reconstructions_plot", 0) + 1
+
+    def stats_series_ok(name):
+        def plot(stats, filename):
+            n = len(stats["F"])
+            for k, v in stats.items():
+                check(len(v) in (0, n), f"{name}: series {k} has {len(v)} of {n} epochs")
+                check(all(bool(np.isfinite(np.asarray(x, dtype=np.float64)).all()) for x in v),
+                      f"{name}: non-finite series {k}")
+            calls[name] = calls.get(name, 0) + 1
+        return plot
+
+    with patched(traversals_lib, generate_traversals=traversals), \
+            patched(recon_lib, reconstructions_plot=reconstructions), \
+            patched(stats_plot_lib, stats_plot=stats_series_ok("stats_plot"),
+                    behavior_plot=stats_series_ok("behavior_plot")):
+        yield
+
+
+def same_tree(a, b) -> bool:
+    """Nested dicts, lists and tensors equal, tensors bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def top_adam_steps(opt) -> int:
+    return int(next(iter(opt.state_dict()["state"].values()))["step"])
+
+
+def phase_distill(torch, smi: str, checkpoint: Path, out_root: str, figures: dict) -> dict:
+    """The distillation CLI on phase 4's checkpoint at the distill
+    defaults (depth cut), then the trainer with its distill hook. Returns
+    K1's launch counts and the distilled checkpoint."""
+    from deep_active_inference_mc_torch.apps import distill as distill_app
+    from deep_active_inference_mc_torch.apps import train as train_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.train import distill as distill_lib
+
+    def replay_steps(cfg) -> int:
+        n = cfg.distill_envs * cfg.distill_macro
+        return cfg.distill_passes * (n // min(cfg.distill_batch, n))
+
+    cfg = Config(distill_macro=DISTILL_MACRO)
+    n_records = cfg.distill_envs * DISTILL_MACRO
+    steps = replay_steps(cfg)
+    print(f"[distill] depth cut: {DISTILL_ITERS} iterations (the CLI's default is 20), "
+          f"{DISTILL_MACRO} decisions per collect (40), {DISTILL_SWEEP_STEPS}-step readouts "
+          f"(100); {cfg.distill_envs} envs, {cfg.distill_repeats} repeats, expand_k "
+          f"{cfg.distill_expand_k}, batch {cfg.distill_batch}, {cfg.distill_passes} passes and "
+          f"{TRAIN_SWEEP_ENVS} readout envs are the defaults: {n_records} records, {steps} "
+          f"replay steps per iteration; PyTorch's defaults", flush=True)
+    timings = {"collect": [], "dstep": []}
+    real_collect, real_dstep = distill_lib.Distiller.collect, distill_lib.Distiller.dstep
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timings[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    out_dir = Path(out_root) / "distilled"
+    log = []
+    before = torch.load(checkpoint / "state" / "state.pt", map_location="cpu", weights_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    with recorded_plans(torch, log), patched(distill_lib.Distiller,
+                                            collect=timed("collect", real_collect),
+                                            dstep=timed("dstep", real_dstep)):
+        t0 = time.perf_counter()
+        res = distill_app.main(["-n", str(checkpoint), "-o", str(out_dir), "--iters",
+                                str(DISTILL_ITERS), "--distill_macro", str(DISTILL_MACRO),
+                                "--sweep_envs", str(TRAIN_SWEEP_ENVS), "--sweep_steps",
+                                str(DISTILL_SWEEP_STEPS)])
+        wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res["cfg"]
+    n_records, steps = cfg.distill_envs * cfg.distill_macro, replay_steps(cfg)
+    check(len(log) == DISTILL_ITERS * DISTILL_MACRO,
+          f"distill: {len(log)} plans, want {DISTILL_ITERS * DISTILL_MACRO}")
+    check(all(B == cfg.distill_envs for B, _, _, _ in log), "distill: a plan of another width")
+    for m in res["metrics"]:
+        check(all(math.isfinite(v) for v in m.values()), f"distill: metrics {m}")
+        check(m["distill_steps"] == steps, f"distill: {m['distill_steps']} steps, want {steps}")
+    check(top_adam_steps(res["state"].opts["top"]) == steps * DISTILL_ITERS,
+          f"distill: top Adam at step {top_adam_steps(res['state'].opts['top'])}, want "
+          f"{steps * DISTILL_ITERS} (reset, then {steps} per iteration)")
+    saved = torch.load(out_dir / "state" / "state.pt", map_location="cpu", weights_only=True)
+    for k, v in before["agent"].items():
+        if not k.startswith("top."):
+            check(torch.equal(saved["agent"][k], v), f"distill: {k} changed")
+    for k in ("mid", "down"):
+        check(same_tree(saved["opt_states"][k], before["opt_states"][k]),
+              f"distill: the {k} optimizer's state changed")
+    readouts = DISTILL_ITERS + 1
+    want = DISTILL_ITERS * (DISTILL_MACRO + steps) + readouts * DISTILL_SWEEP_STEPS
+    check(launches.get("render", 0) == want,
+          f"distill: {launches.get('render', 0)} K1 launches, want {want} ({DISTILL_MACRO} per "
+          f"collect + {steps} per iteration's replay + {readouts} readouts x "
+          f"{DISTILL_SWEEP_STEPS})")
+    collect_s, dstep_s = timings["collect"], timings["dstep"]
+    plan_s = sum(dt for _, dt, _, _ in log)
+    iters = sum(min(int(r.repeats_done.max()) + cfg.distill_expand_k, cfg.distill_repeats)
+                // cfg.distill_expand_k for _, _, r, _ in log)
+    print(f"[distill] {DISTILL_ITERS} iterations in {wall:.2f}s: collect "
+          f"{statistics.mean(collect_s) * 1e3:.1f} ms each ({[round(x, 3) for x in collect_s]} "
+          f"s), plans/s of the collect {n_records / statistics.mean(collect_s):.1f}, "
+          f"{plan_s / max(iters, 1) * 1e3:.2f} ms per planner iteration ({iters} iterations of "
+          f"{cfg.distill_expand_k} x {cfg.distill_envs} leaves); replay "
+          f"{statistics.median(dstep_s) * 1e3:.2f} ms per step (median of {len(dstep_s)}, "
+          f"{min(cfg.distill_batch, n_records)} rows); readouts {res['readouts']}; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches {launches} [{smi}]", flush=True)
+
+    # The trainer's hook: one epoch with a distill phase before the save.
+    hook_macro = 2
+    argv = ["--batch", str(TRAIN_BATCH), *TRAIN_FLAGS, "--test_size", str(TRAIN_TEST_SIZE),
+            "--sweep_envs", str(TRAIN_SWEEP_ENVS), "--rounds", str(TRAIN_ROUNDS),
+            "--sweep_steps", str(TRAIN_SWEEP_STEPS), "--save_every", "1", "--epochs", "1",
+            "--distill_every", "1", "--distill_macro", str(hook_macro),
+            "--out_root", str(Path(out_root) / "hook")]
+    drawn = dict(figures)
+    LAUNCHES.clear()
+    out = train_app.main(argv)
+    hook = dict(LAUNCHES)
+    hook_steps = replay_steps(out["cfg"])
+    stats = out["stats"]
+    check(all(stats[k][-1] != 0.0 for k in ("distill_kl_first", "distill_kl_last",
+                                            "distill_target_entropy")),
+          "trainer hook: the distill series were not filled")
+    want = (2 * TRAIN_SWEEP_STEPS + 2 * TRAIN_ROUNDS + EVAL_RENDERS + 2 * TRAIN_SWEEP_STEPS
+            + hook_macro + hook_steps)
+    check(hook.get("render", 0) == want,
+          f"trainer hook: {hook.get('render', 0)} K1 launches, want {want}")
+    check(adam_steps(out["state"]) == {"top": TRAIN_ROUNDS + hook_steps, "mid": TRAIN_ROUNDS,
+                                       "down": TRAIN_ROUNDS},
+          f"trainer hook: Adam step counts {adam_steps(out['state'])}")
+    saved = torch.load(out["folder"] / "checkpoints" / "state" / "state.pt", map_location="cpu",
+                       weights_only=True)
+    check(all(torch.equal(saved["agent"][f"top.{k}"], v.cpu())
+              for k, v in out["state"].agent.top.state_dict().items()),
+          "trainer hook: the checkpoint does not hold the distilled top")
+    for name in ("generate_traversals", "stats_plot", "behavior_plot"):
+        check(figures.get(name, 0) == drawn.get(name, 0) + 1, f"trainer hook: {name} calls")
+    check(figures.get("reconstructions_plot", 0) == drawn.get("reconstructions_plot", 0) + 2,
+          "trainer hook: reconstructions_plot calls")
+    print(f"[distill] trainer hook: 1 epoch of {TRAIN_ROUNDS} rounds, then a phase of "
+          f"{hook_macro} decisions and {hook_steps} replay steps before the save; launches "
+          f"{hook} = the epoch's plus {hook_macro} + {hook_steps}; figures drawn by the "
+          f"recorders {figures} [{smi}]", flush=True)
+    return {"distill": launches, "train_distill_hook": hook}, out_dir
+
+
+def phase_demo(torch, smi: str, checkpoint: Path) -> dict:
+    """The demo's headless rounds on the distilled checkpoint. Returns
+    K1's launch counts."""
+    from deep_active_inference_mc_torch.apps import demo as demo_app
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+
+    runs = {"habit": [], "ai": ["--steps", "7"], "mcts": ["--repeats", str(DEMO_REPEATS),
+                                                          "--depth", "3"]}
+    print(f"[demo] one round ({demo_app.DURATION_OF_ROUND} frames) per controller on the "
+          f"distilled checkpoint; ai at 7 steps and 10 samples, mcts at {DEMO_REPEATS} "
+          f"repeats and depth 3 (the demo's defaults)", flush=True)
+    out_launches = {}
+    for method, flags in runs.items():
+        log = []
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        with recorded_plans(torch, log):
+            out = demo_app.main(["-n", str(checkpoint), "--method", method, "--headless",
+                                 str(demo_app.DURATION_OF_ROUND), *flags])
+        launches = dict(LAUNCHES)
+        trace = out["trace"]
+        check(tuple(trace.shape) == (demo_app.DURATION_OF_ROUND,)
+              and bool(torch.isfinite(trace).all()), f"demo {method}: score trace {trace}")
+        check(out["plans"] >= 1 and launches.get("render", 0) == out["plans"],
+              f"demo {method}: {launches.get('render', 0)} K1 launches, {out['plans']} plans")
+        if method == "mcts":
+            check(len(log) == out["plans"], f"demo mcts: {len(log)} planner calls, "
+                  f"{out['plans']} plans")
+        extra = ""
+        if log:
+            reps = torch.cat([r.repeats_done for _, _, r, _ in log]).double()
+            extra = (f", {sum(dt for _, dt, _, _ in log) / len(log) * 1e3:.1f} ms per plan, "
+                     f"repeats_done mean {reps.mean():.1f}")
+        print(f"[demo] {method}: {demo_app.DURATION_OF_ROUND} frames in {out['wall']:.3f}s, "
+              f"{out['fps']:.1f} frames/s, {out['plans']} plans per round, final score "
+              f"{float(trace[-1]):+.4f}{extra}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches {launches} "
+              f"[{smi}]", flush=True)
+        out_launches[f"demo_{method}"] = launches
+    return out_launches
+
+
+def phase_causal(torch, smi: str, out_root: str, figures: dict) -> dict:
+    """The causal trainer CLI: train, save, then resume. Returns K1's
+    launch counts."""
+    from deep_active_inference_mc_torch.apps import train_causal as causal_app
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+
+    argv = ["--batch", str(TRAIN_BATCH), "--test_size", str(TRAIN_TEST_SIZE), "--rounds",
+            str(TRAIN_ROUNDS), "--save_every", "1", "--out_root", str(Path(out_root) / "causal")]
+    print(f"[causal] depth cut: {TRAIN_ROUNDS} rounds per epoch (1000), {TRAIN_EPOCHS}+1 "
+          f"epochs; batch {TRAIN_BATCH}, test_size {TRAIN_TEST_SIZE} and the model's widths "
+          f"are the defaults; l_rate 1e-4", flush=True)
+    drawn = dict(figures)
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    first = causal_app.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
+    launches = dict(LAUNCHES)
+    LAUNCHES.clear()
+    resumed = causal_app.main(argv + ["--resume", "--epochs", str(TRAIN_EPOCHS + 1)])
+    launches_resumed = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(resumed["start_epoch"] == TRAIN_EPOCHS + 1,
+          f"causal resume: started at epoch {resumed['start_epoch']}")
+    stats = resumed["stats"]
+    for k in ("F", "mse_o", "kl_div_s", "omega"):
+        check(len(stats[k]) == TRAIN_EPOCHS + 1 and all(math.isfinite(v) for v in stats[k]),
+              f"causal: series {k} {stats[k]}")
+    check(stats["F"][-1] < stats["F"][0], f"causal: F did not fall {stats['F']}")
+    for tag, got, epochs in (("causal", launches, TRAIN_EPOCHS),
+                             ("causal resume", launches_resumed, 1)):
+        want = epochs * (2 * TRAIN_ROUNDS + 2)  # 2 per round, 2 per eval
+        check(got.get("render", 0) == want,
+              f"{tag}: {got.get('render', 0)} K1 launches, want {want} (2 per round)")
+    epochs = TRAIN_EPOCHS + 1
+    for name, per_epoch in (("generate_traversals", 1), ("reconstructions_plot", 1)):
+        check(figures.get(name, 0) == drawn.get(name, 0) + per_epoch * epochs,
+              f"causal: {name} drawn {figures.get(name, 0) - drawn.get(name, 0)} times")
+    secs = first["epoch_seconds"] + resumed["epoch_seconds"]
+    print(f"[causal] F by epoch {[round(v, 5) for v in stats['F']]}, cf figures every epoch; "
+          f"{[round(s / TRAIN_ROUNDS * 1e3, 3) for s in secs]} ms per round by epoch (the "
+          f"first pays cuDNN's algorithm search); peak memory {peak / 2 ** 20:.1f} MiB; "
+          f"launches {launches} then {launches_resumed} [{smi}]", flush=True)
+    return {"causal": launches, "causal_resume": launches_resumed}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
@@ -1046,24 +1365,38 @@ def main() -> None:
     runs = {f"sweep_{method}": r["launches"] for method, r in
             phase_sweep(torch, smi, args).items()}
 
-    # ---- 4. the training path at full width ------------------------------
-    runs.update(phase_train(torch, smi, args))
+    figures = {}
+    with tempfile.TemporaryDirectory() as work, figure_recorders(torch, figures):
+        # ---- 4. the training path at full width --------------------------
+        train_runs, train_folder = phase_train(torch, smi, args, work)
+        runs.update(train_runs)
 
-    # ---- 5. card against CPU ---------------------------------------------
-    LAUNCHES.clear()
-    phase_card_vs_cpu(torch, dev)
-    phase_round_card_vs_cpu(torch, dev)
+        # ---- 5. card against CPU -----------------------------------------
+        LAUNCHES.clear()
+        phase_card_vs_cpu(torch, dev)
+        phase_round_card_vs_cpu(torch, dev)
 
-    # ---- 6. the planner path at full width --------------------------------
-    phase_planner_mechanics(torch, dev)
-    runs.update(phase_mcts_sweeps(torch, smi))
-    LAUNCHES.clear()
-    phase_reference_budget(torch, dev, smi)
-    phase_search_card_vs_cpu(torch, dev)
-    if args.profile:
-        profile_planner(torch, dev, args.trace_dir)
+        # ---- 6. the planner path at full width ----------------------------
+        phase_planner_mechanics(torch, dev)
+        runs.update(phase_mcts_sweeps(torch, smi))
+        LAUNCHES.clear()
+        phase_reference_budget(torch, dev, smi)
+        phase_search_card_vs_cpu(torch, dev)
+        if args.profile:
+            profile_planner(torch, dev, args.trace_dir)
 
-    # ---- 7. result lines -------------------------------------------------
+        # ---- 8. MCTS-visit distillation ----------------------------------
+        distill_runs, distilled = phase_distill(torch, smi, train_folder / "checkpoints",
+                                                work, figures)
+        runs.update(distill_runs)
+
+        # ---- 9. the demo ---------------------------------------------------
+        runs.update(phase_demo(torch, smi, distilled))
+
+        # ---- 10. the causal trainer ----------------------------------------
+        runs.update(phase_causal(torch, smi, work, figures))
+
+    # ---- 11. result lines ------------------------------------------------
     # K1's row: the launches of the training run (this system's main path)
     # and the times at its batch; the other paths and sizes beside them.
     for path, launches in runs.items():

@@ -10,8 +10,9 @@ Scores a controller over thousands of vectorized environments on one card:
     python -m deep_active_inference_mc_torch.apps.sweep \
         --method mcts --envs 512 --mcts_bucketed --plan_queue --mcts_c 2
 
-``-n`` takes a ``.npz`` of the JAX agent's params (README: "Weights");
-without it the agent is a seeded He-uniform init. Prints one result row in
+``-n`` takes a ``.npz`` of the JAX agent's params (README: "Weights") or a
+port checkpoint dir (the trainer's or ``apps/distill.py``'s); without it the
+agent is a seeded He-uniform init. Prints one result row in
 the JAX CLI's format. ``--device cpu`` runs on the CPU; the default
 ``cuda`` raises on a machine without a card.
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -29,17 +31,21 @@ from deep_active_inference_mc_torch.envs import raster
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.plan.mcts import MCTSParams
 from deep_active_inference_mc_torch.train import sweep as sweep_lib
+from deep_active_inference_mc_torch.utils import checkpoint as ckpt
 from deep_active_inference_mc_torch.utils import convert
 from deep_active_inference_mc_torch.utils.device import resolve_device
 
 
 def build_agent(cfg: Config, network: str, device: torch.device) -> ActiveInferenceAgent:
-    """The flagship-width agent: weights from a params ``.npz`` or, when
-    ``network`` is empty, a seeded init (seed 0, drawn on the CPU)."""
+    """The flagship-width agent: weights from a port checkpoint dir or a
+    params ``.npz`` or, when ``network`` is empty, a seeded init (seed 0,
+    drawn on the CPU)."""
     agent = ActiveInferenceAgent(s_dim=cfg.s_dim, pi_dim=cfg.pi_dim,
                                  colour_channels=cfg.colour_channels,
                                  resolution=cfg.resolution)
-    if network:
+    if network and Path(network).is_dir():
+        ckpt.load_weights(network, agent)
+    elif network:
         agent.load_state_dict(convert.load_npz(network))
     else:
         agent.init(torch.Generator().manual_seed(0))

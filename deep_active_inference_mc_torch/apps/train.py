@@ -4,9 +4,13 @@
         [--device cuda|cpu] [--epochs N] [--rounds N] [... any Config field ...]
 
 Each epoch runs ``rounds`` training rounds on the device (on-policy data
-generation + the three staged updates, ``train/loop.py``), evaluates
-(``train/evaluate.py``), scores the fixed-seed ``ai`` and ``habit`` sweeps,
-appends every stats series and prints one line. Checkpoints go to
+generation + the three staged updates, ``train/loop.py``), then every
+``distill_every`` epochs (0: never) an MCTS-visit distillation phase
+(``train/distill.py``), evaluates (``train/evaluate.py``), scores the
+fixed-seed ``ai`` and ``habit`` sweeps, appends every stats series, prints
+one line and, every ``viz_every`` epochs, draws the traversal grid, the
+imagination and reward-imagination strips and the two dashboards into the
+run folder (``viz/``). Checkpoints go to
 ``<out_root>/figs_<signature>/checkpoints`` every ``save_every`` epochs, with
 weight-only archives every ``archive_every``; ``--resume`` continues from the
 newest one, optimizer states and random stream included. SIGINT and SIGTERM
@@ -17,9 +21,8 @@ The default device is ``cuda``, and a machine without a card raises;
 defaults (cuDNN may use TF32 for float32 convolutions on a card).
 
 Not ported yet, and refused with an error that names the missing part:
-``--distill_every`` (train/distill.py), ``--mesh_shape`` > 1 and
-``--coordinator`` (parallel/mesh.py), ``--bf16`` (bf16 forwards). The
-per-epoch figures (viz/) come with the viz port; ``viz_every`` is unused.
+``--mesh_shape`` > 1 and ``--coordinator`` (parallel/mesh.py), ``--bf16``
+(bf16 forwards).
 """
 
 from __future__ import annotations
@@ -41,17 +44,22 @@ from deep_active_inference_mc_torch.infer.precision import anneal_gamma
 from deep_active_inference_mc_torch.ops import math as m
 from deep_active_inference_mc_torch.train import loop as train_loop
 from deep_active_inference_mc_torch.train import sweep as sweep_lib
+from deep_active_inference_mc_torch.train.distill import Distiller
 from deep_active_inference_mc_torch.train.evaluate import make_eval
 from deep_active_inference_mc_torch.utils import checkpoint as ckpt
 from deep_active_inference_mc_torch.utils import stats as stats_lib
 from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_generator
+from deep_active_inference_mc_torch.viz import generate_traversals as traversals_lib
+from deep_active_inference_mc_torch.viz import nhwc
+from deep_active_inference_mc_torch.viz import reconstructions_plot as recon_lib
+from deep_active_inference_mc_torch.viz import stats_plot as stats_plot_lib
 
 RUN_SEED = 0
 # Fixed sweep seed: the per-epoch score series is paired across epochs
 # (same initial envs, same noise stream; differences come from the weights
 # only), and the constant expert/random baselines share it.
 SWEEP_SEED = 20260817
-_ENV_STREAM, _AI_STREAM, _HABIT_STREAM = 0, 1, 2
+ENV_STREAM, AI_STREAM, HABIT_STREAM = 0, 1, 2
 
 # Scalar eval series copied into the stats under the same name.
 _EVAL_SCALARS = (
@@ -66,10 +74,43 @@ _DISTILL_KEYS = ("distill_kl_first", "distill_kl_last", "distill_match_first",
                  "distill_match_last", "distill_target_entropy")
 
 
+def fixed_sweep_env(cfg: Config, device) -> env_lib.EnvState:
+    """The ``sweep_envs`` initial envs of every per-epoch sweep."""
+    g_env = seeded_generator(device, SWEEP_SEED, ENV_STREAM)
+    return env_lib.randomize(env_lib.reset(g_env, cfg.sweep_envs, device), g_env)
+
+
+def sweep_generator(device, stream: int) -> torch.Generator:
+    """The fixed noise stream of one per-epoch sweep."""
+    return seeded_generator(device, SWEEP_SEED, stream)
+
+
+def draw_figures(agent: ActiveInferenceAgent, cfg: Config, ev: dict, stats: dict,
+                 folder: Path, epoch: int) -> None:
+    """The epoch's figures: the traversal grid of the eval batch's samples,
+    the imagination and reward-imagination strips, the two dashboards."""
+
+    @torch.no_grad()
+    def decode(s):
+        return nhwc(agent.decode(torch.as_tensor(s, device=ev["s0"].device)))
+
+    traversals_lib.generate_traversals(
+        decode_fn=decode, s_dim=cfg.s_dim, s_sample=ev["s0"].cpu().numpy(),
+        S_real=ev["S0_real"].cpu().numpy(),
+        filenames=[folder / f"traversals_at_epoch_{epoch:04d}.png"])
+    recon_lib.reconstructions_plot(
+        nhwc(ev["o0"]), nhwc(ev["o1"]), nhwc(ev["po1"]),
+        filename=folder / f"imagination_{cfg.signature}_{epoch}.png")
+    # Does the decoded imagination of an "up" at the scoring edge paint the
+    # reward strip?
+    recon_lib.reconstructions_plot(
+        nhwc(ev["o0_probe"]), nhwc(ev["o1_probe"]), nhwc(ev["po1_probe"]),
+        filename=folder / f"reward_imagination_{cfg.signature}_{epoch}.png")
+    stats_plot_lib.stats_plot(stats, folder / f"1_result_{cfg.signature}")
+    stats_plot_lib.behavior_plot(stats, folder / f"2_behavior_{cfg.signature}")
+
+
 def _refuse_unported(cfg: Config, known: argparse.Namespace) -> None:
-    if cfg.distill_every > 0:
-        raise NotImplementedError(
-            "--distill_every: MCTS-visit distillation (train/distill.py) is not ported yet")
     if (cfg.mesh_shape is not None and cfg.mesh_shape > 1) or known.coordinator:
         raise NotImplementedError(
             "--mesh_shape/--coordinator: multi-device training (parallel/mesh.py) is not "
@@ -154,14 +195,14 @@ def main(argv=None) -> dict:
     habit_fn = sweep_lib.make_sweep(
         agent, cfg, lut, method="habit", n_macro_steps=cfg.sweep_steps, jumps=cfg.repeats)
 
-    g_env = seeded_generator(device, SWEEP_SEED, _ENV_STREAM)
-    sweep_env = env_lib.randomize(env_lib.reset(g_env, cfg.sweep_envs, device), g_env)
-    sweep_gen = lambda stream: seeded_generator(device, SWEEP_SEED, stream)
+    distiller = Distiller(agent, cfg, lut) if cfg.distill_every > 0 else None
+
+    sweep_env = fixed_sweep_env(cfg, device)
     sweep_base = {}
     for meth in ("random", "expert"):
         fn = sweep_lib.make_sweep(agent, cfg, lut, method=meth,
                                   n_macro_steps=cfg.sweep_steps, jumps=cfg.repeats)
-        sweep_base[meth] = fn(sweep_gen(_AI_STREAM), sweep_env)["score_mean"]
+        sweep_base[meth] = fn(sweep_generator(device, AI_STREAM), sweep_env)["score_mean"]
     print(
         f"sweep baselines (fixed seed, {cfg.sweep_envs} envs x "
         f"{cfg.sweep_steps} macro): random {sweep_base['random']:+.3f}, "
@@ -182,6 +223,22 @@ def main(argv=None) -> dict:
                 state, train_metrics = epoch_fn(state, gen)
             env_sps = cfg.batch * cfg.repeats * cfg.rounds / (time.time() - epoch_t0)
             env_sps_log.append(env_sps)
+
+            # MCTS-visit distillation: sharpen the habit net against the
+            # planner's root visits. It runs before the eval and the
+            # checkpoint, so both see the distilled weights.
+            dmetrics = {}
+            if distiller is not None and epoch % cfg.distill_every == 0:
+                d_t0 = time.time()
+                state, dmetrics = distiller(state, gen)
+                print(
+                    f"  distill@{epoch}: kl {dmetrics['distill_kl_first']:.3f}"
+                    f"->{dmetrics['distill_kl_last']:.3f}, match "
+                    f"{dmetrics['distill_match_first']:.2f}->"
+                    f"{dmetrics['distill_match_last']:.2f}, target H "
+                    f"{dmetrics['distill_target_entropy']:.3f}, "
+                    f"{dmetrics['distill_steps']:.0f} steps, {time.time() - d_t0:.1f}s",
+                    flush=True)
 
             # ---- evaluation ---------------------------------------------------
             ev = eval_fn(state.precision, gen)
@@ -209,10 +266,10 @@ def main(argv=None) -> dict:
                 stats[k + "_max"].append(train_metrics[k + "_max"])
             stats["F_down_round_max"].append(train_metrics["F_down_max"])
             for k in _DISTILL_KEYS:
-                stats[k].append(0.0)
+                stats[k].append(dmetrics.get(k, 0.0))
 
-            sc = score_fn(sweep_gen(_AI_STREAM), sweep_env)
-            sc_h = habit_fn(sweep_gen(_HABIT_STREAM), sweep_env)
+            sc = score_fn(sweep_generator(device, AI_STREAM), sweep_env)
+            sc_h = habit_fn(sweep_generator(device, HABIT_STREAM), sweep_env)
             stats["score"].append(sc["score_mean"])
             stats["train_scores_m"].append(sc["score_mean"])
             stats["train_scores_std"].append(sc["score_std"])
@@ -236,6 +293,8 @@ def main(argv=None) -> dict:
             if epoch % cfg.archive_every == 0:
                 saver.wait()  # the archive copies the checkpoint dir
                 ckpt.archive(folder_chp, epoch)
+            if epoch % cfg.viz_every == 0:
+                draw_figures(agent, cfg, ev, stats, folder, epoch)
 
             print(
                 f"{epoch}, F: {stats['F'][-1]:.2f}, MSEo: {stats['mse_o'][-1]:.3f} "
@@ -272,8 +331,8 @@ def main(argv=None) -> dict:
         ckpt.save_all(folder_chp, state, stats, gen, script_file=__file__)
         raise SystemExit(130)
     saver.wait()
-    return {"state": state, "stats": stats, "folder": folder, "start_epoch": start_epoch,
-            "env_steps_per_s": env_sps_log}
+    return {"state": state, "cfg": cfg, "stats": stats, "folder": folder,
+            "start_epoch": start_epoch, "env_steps_per_s": env_sps_log}
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ keep both conventions.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
@@ -25,6 +26,8 @@ from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.infer.precision import OmegaParams, PrecisionState
 from deep_active_inference_mc_torch.train import losses
+
+N_PLOT = 7  # frames per reconstruction strip
 
 
 @torch.no_grad()
@@ -79,14 +82,45 @@ def eval_losses(agent: ActiveInferenceAgent, cfg: Config, precision: PrecisionSt
     }
 
 
+@dataclasses.dataclass
+class ProbeDraws:
+    """Noise of the reward-transition probe: the randomized envs and the
+    respawns of its batch, and the imagination's encoder draw, transition
+    keep-masks and transition draw."""
+
+    env: env_lib.EnvDraws
+    respawns: torch.Tensor
+    eps_enc: torch.Tensor
+    masks: losses.Masks
+    eps_trans: torch.Tensor
+
+
+@dataclasses.dataclass
+class EvalDraws:
+    """Noise of one eval pass, for injection."""
+
+    batch: data_lib.RandomDraws
+    staged: losses.StagedDraws
+    probe: ProbeDraws
+    edge: efe.RolloutDraws
+
+
 @torch.no_grad()
 def reward_transition_probe(agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor,
-                            size: int, generator: torch.Generator):
+                            size: int, generator: Optional[torch.Generator] = None,
+                            draws: Optional[ProbeDraws] = None):
     """Does imagination predict the reward consequence of a scoring move?
     Returns (mse_r, deep_mse, o0, o1, po1); deep_mse is the full-frame
     imagination MSE."""
-    o0, o1, pi0 = data_lib.make_batch_random_reward_transitions(cfg, lut, size, generator)
-    po1 = agent.imagine_future_from_o(o0, pi0, generator)
+    d = draws
+    o0, o1, pi0 = data_lib.make_batch_random_reward_transitions(
+        cfg, lut, size, generator, None if d is None else d.env,
+        None if d is None else d.respawns)
+    if d is None:
+        po1 = agent.imagine_future_from_o(o0, pi0, generator)
+    else:
+        po1 = agent.imagine_future_from_o(o0, pi0, eps_enc=d.eps_enc, masks=d.masks,
+                                          eps_trans=d.eps_trans)
     return data_lib.compare_reward(o1, po1), torch.mean(torch.square(o1 - po1)), o0, o1, po1
 
 
@@ -152,22 +186,40 @@ def edge_discrimination_probe(agent: ActiveInferenceAgent, cfg: Config, lut: tor
 
 def make_eval(agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor
               ) -> Callable[[PrecisionState, torch.Generator], Dict[str, torch.Tensor]]:
-    """``evaluate(precision, generator)``: one eval pass returning the full
+    """``evaluate(precision, generator, draws=None)``: one eval pass
+    (``draws`` injects its noise) returning the full
     epoch stats payload, tensors on the device (the caller transfers the
-    series it keeps)."""
+    series it keeps), and the first ``N_PLOT`` frames of the eval batch
+    (``o0``, ``o1``, ``po1``) and of the reward probe (``*_probe``) for the
+    figures."""
 
     @torch.no_grad()
-    def evaluate(precision: PrecisionState, generator: torch.Generator):
-        device = lut.device
-        env = env_lib.reset(generator, cfg.test_size, device)
-        _, o0, o1, pi0, _, S0_real, _ = data_lib.make_batch_random(cfg, env, lut, generator)
-        metrics = eval_losses(agent, cfg, precision, o0, o1, pi0, generator)
-        mse_r, deep_mse, _, _, _ = reward_transition_probe(
-            agent, cfg, lut, cfg.test_size, generator)
+    def evaluate(precision: PrecisionState, generator: Optional[torch.Generator] = None,
+                 draws: Optional[EvalDraws] = None):
+        d = draws
+        if d is None:
+            env = env_lib.reset(generator, cfg.test_size, lut.device)
+        else:  # the batch's randomize replaces every field
+            env = env_lib.EnvState(*d.batch.env)
+        _, o0, o1, pi0, _, S0_real, _ = data_lib.make_batch_random(
+            cfg, env, lut, generator, None if d is None else d.batch)
+        metrics = eval_losses(agent, cfg, precision, o0, o1, pi0, generator,
+                              None if d is None else d.staged)
+        mse_r, deep_mse, o0p, o1p, po1p = reward_transition_probe(
+            agent, cfg, lut, cfg.test_size, generator, None if d is None else d.probe)
         metrics["mse_r"] = mse_r
         metrics["deep_mse_o"] = deep_mse
-        metrics.update(edge_discrimination_probe(agent, cfg, lut, generator))
+        metrics.update(edge_discrimination_probe(agent, cfg, lut, generator,
+                                                 None if d is None else d.edge))
         metrics["S0_real"] = S0_real
+        # Frames for the 7-sample reconstruction strips only, sliced on the
+        # device so the host copy stays small: the eval batch's o0, o1 and
+        # decoded o1, and the reward-imagination probe's real pre/post
+        # scoring frames beside the imagined one.
+        metrics["o0"], metrics["o1"] = o0[:N_PLOT], o1[:N_PLOT]
+        metrics["po1"] = metrics["po1"][:N_PLOT]
+        metrics["o0_probe"], metrics["o1_probe"] = o0p[:N_PLOT], o1p[:N_PLOT]
+        metrics["po1_probe"] = po1p[:N_PLOT]
         return metrics
 
     return evaluate

@@ -197,6 +197,15 @@ def load_all(folder_chp: Path, state: TrainState, generator: torch.Generator
     return state, stats
 
 
+def load_weights(folder_chp: Path, module: torch.nn.Module) -> torch.nn.Module:
+    """Load only the model weights of a checkpoint (full or archive) into
+    ``module``: what a sweep or the demo needs, on any device."""
+    state_dir = _resolve_state_dir(Path(folder_chp).resolve())
+    payload = torch.load(state_dir / _STATE_FILE, map_location="cpu", weights_only=True)
+    module.load_state_dict(payload["agent"])
+    return module
+
+
 def archive(folder_chp: Path, epoch: int) -> None:
     """Immutable weight-only archive ``<folder>_epoch_<n>``: a copy of the
     checkpoint dir whose state has no optimizer state."""

@@ -11,6 +11,18 @@
     spatially flipped: Flax's transposed conv does not flip its kernel,
     ``conv_transpose2d`` does.
 
+``causal_params_from_jax`` does the same for the structural causal model
+(``enc_convs_{0..2}``, ``enc_fc``, ``dec_fc``, ``dec_convs_{0,1}``,
+``dec_out``), whose convs have kernel 4 at stride 2. The rules there, held
+layer by layer against Flax in tests/test_torch_causal.py (float32, CPU):
+
+  - stride-2 SAME Conv, kernel 4, even input = ``conv2d(stride=2,
+    padding=1)`` with HWIO -> OIHW: max abs error <= 4.5e-6 (the
+    asymmetric pad ``(2, 1, 2, 1)`` is off by 4.9-7.4);
+  - stride-2 SAME ConvTranspose, kernel 4 = ``conv_transpose2d(stride=2,
+    padding=1)`` with HWIO -> (in, out, kh, kw) and the kernel spatially
+    flipped: max abs error <= 9.5e-7 (unflipped it is off by 2.8-5.0).
+
 ``load_npz`` reads a flat ``.npz`` keyed by the tree path
 (``"down/decoder/Dense_3/kernel"``, ...); the README shows how to write one
 from a JAX checkpoint.
@@ -34,6 +46,17 @@ def _layers(node: dict, kind: str):
     return [(i, node[f"{kind}_{i}"]) for i in idx]
 
 
+def _conv(leaf) -> torch.Tensor:
+    """Flax Conv kernel HWIO -> Conv2d weight OIHW."""
+    return _t(np.transpose(leaf["kernel"], (3, 2, 0, 1)))
+
+
+def _conv_transpose(leaf) -> torch.Tensor:
+    """Flax ConvTranspose kernel HWIO -> ConvTranspose2d weight (in, out,
+    kh, kw), spatially flipped."""
+    return _t(np.transpose(leaf["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     """The port's ``ActiveInferenceAgent`` state_dict from Flax params."""
     sd: Dict[str, torch.Tensor] = {}
@@ -48,13 +71,29 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     enc, dec = tree["down"]["encoder"], tree["down"]["decoder"]
     dense("down.encoder", enc)
     for i, leaf in _layers(enc, "Conv"):
-        sd[f"down.encoder.conv.{i}.weight"] = _t(np.transpose(leaf["kernel"], (3, 2, 0, 1)))
+        sd[f"down.encoder.conv.{i}.weight"] = _conv(leaf)
         sd[f"down.encoder.conv.{i}.bias"] = _t(leaf["bias"])
     dense("down.decoder", dec)
     for i, leaf in _layers(dec, "ConvTranspose"):
-        k = np.transpose(leaf["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1]
-        sd[f"down.decoder.deconv.{i}.weight"] = _t(k)
+        sd[f"down.decoder.deconv.{i}.weight"] = _conv_transpose(leaf)
         sd[f"down.decoder.deconv.{i}.bias"] = _t(leaf["bias"])
+    return sd
+
+
+def causal_params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """The port's ``StructuralCausalModel`` state_dict from Flax params."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, kind in (("enc_fc", "dense"), ("dec_fc", "dense"), ("enc_convs_0", "conv"),
+                       ("enc_convs_1", "conv"), ("enc_convs_2", "conv"),
+                       ("dec_convs_0", "deconv"), ("dec_convs_1", "deconv"),
+                       ("dec_out", "deconv")):
+        leaf = tree[name]
+        target = {"dec_out": "dec_convs.2"}.get(name, name.replace("_convs_", "_convs."))
+        if kind == "dense":
+            sd[f"{target}.weight"] = _t(np.asarray(leaf["kernel"]).T)
+        else:
+            sd[f"{target}.weight"] = (_conv if kind == "conv" else _conv_transpose)(leaf)
+        sd[f"{target}.bias"] = _t(leaf["bias"])
     return sd
 
 

@@ -1,22 +1,28 @@
 """PyTorch port: the hand-written CUDA kernels against their plain PyTorch
-versions on a card, and the training round, the checkpoint and the MCTS
-sweeps on a card.
+versions on a card, and the training round, the checkpoint, the MCTS
+sweeps, the distillation replay, the demo and the causal round on a card.
 Marked ``cuda``; without a card they skip. The file
 imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import argparse
+
 import numpy as np
 import pytest
 import torch
 
+from deep_active_inference_mc_torch.apps import demo as demo_app
 from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import dsprites as tenv
 from deep_active_inference_mc_torch.envs import raster as traster
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
 from deep_active_inference_mc_torch.ops.cuda import render as k_render
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+from deep_active_inference_mc_torch.models.causal import StructuralCausalModel
+from deep_active_inference_mc_torch.train import causal as causal_lib
+from deep_active_inference_mc_torch.train import distill as distill_lib
 from deep_active_inference_mc_torch.plan.mcts import MCTSParams
 from deep_active_inference_mc_torch.train import sweep as sweep_lib
 from deep_active_inference_mc_torch.train import loop as train_loop
@@ -58,6 +64,59 @@ def test_render_kernel_matches_plain(cuda_device, B):
     assert torch.equal(got, k_render.render_frames_plain(lut, *args))
     cpu = k_render.render_frames_plain(traster.build_sprite_lut("cpu"), *(a.cpu() for a in args))
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2048, 1])
+def test_render_kernel_at_the_replay_and_demo_batches(cuda_device, B):
+    """K1 at the distillation replay's batch (2048 at the defaults) and at
+    the demo's single env, bit for bit against its plain version."""
+    lat, last_r = make_latents(B, seed=B + 7)
+    args = k_render.frame_inputs(torch.from_numpy(lat).to(cuda_device),
+                                 torch.from_numpy(last_r).to(cuda_device))
+    lut = traster.build_sprite_lut(cuda_device)
+    assert torch.equal(k_render.render_frames_cuda(lut, *args),
+                       k_render.render_frames_plain(lut, *args))
+
+
+@pytest.mark.cuda
+def test_distill_replay_launches_the_kernel_once_per_step(cuda_device):
+    cfg = Config(distill_envs=8, distill_macro=2, distill_repeats=4, distill_expand_k=2,
+                 distill_batch=8, distill_passes=2)
+    gen = seeded_generator(cuda_device, 0)
+    state = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen, cuda_device)
+    distiller = distill_lib.Distiller(state.agent, cfg, traster.build_sprite_lut(cuda_device))
+    before = LAUNCHES["render"]
+    state, metrics = distiller(state, gen)
+    # One render per collected decision, one per replay step.
+    assert LAUNCHES["render"] == before + cfg.distill_macro + metrics["distill_steps"] == (
+        before + 2 + 4)
+    assert all(np.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["habit", "mcts"])
+def test_demo_round_on_card_renders_once_per_plan(cuda_device, method):
+    args = argparse.Namespace(mean=False, method=method, steps=3, temperature=1.0, jumps=5,
+                              C=1.0, repeats=4, threshold=0.5, depth=2, no_habit=False, seed=0)
+    agent = ActiveInferenceAgent().init(torch.Generator().manual_seed(0)).to(cuda_device)
+    demo = demo_app.Demo(agent, args)
+    before = LAUNCHES["render"]
+    trace = demo.run_round()
+    assert LAUNCHES["render"] == before + demo.plans_made and demo.plans_made >= 2
+    assert trace.is_cuda and bool(torch.isfinite(trace).all())
+
+
+@pytest.mark.cuda
+def test_causal_round_on_card_launches_the_kernel_twice(cuda_device):
+    cfg = Config(batch=64)
+    gen = seeded_generator(cuda_device, 0)
+    state = causal_lib.create_causal_state(cfg, StructuralCausalModel(), gen, cuda_device)
+    before = LAUNCHES["render"]
+    state, metrics = causal_lib.causal_round(cfg, state, traster.build_sprite_lut(cuda_device),
+                                             gen)
+    assert LAUNCHES["render"] == before + 2
+    assert all(v.is_cuda and bool(torch.isfinite(v)) for v in metrics.values())
 
 
 @pytest.mark.cuda

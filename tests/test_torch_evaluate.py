@@ -20,10 +20,10 @@ from deep_active_inference_mc_torch.envs import data as tdata
 from deep_active_inference_mc_torch.envs import raster as traster
 from deep_active_inference_mc_torch.infer import precision as tprecision
 from deep_active_inference_mc_torch.train import evaluate as teval
-from test_torch_data import tstate
+from test_torch_data import env_draws, respawn_draws, tstate
 from test_torch_efe import G_TOL
 from test_torch_losses import (LOSS_TOL, jax_down_draws, jax_mid_draws, jax_normal,
-                               jax_rollout_draws)
+                               jax_rollout_draws, t)
 from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
 from test_torch_models import jax_flagship, torch_agent
 
@@ -108,3 +108,51 @@ def test_eval_pass_fills_every_series(flagship, luts):
     # The flagship reconstructs well below an untrained net's ~2000 nats.
     assert float(ev["mse_o_clean"]) < 200.0
     assert not any(v.requires_grad for v in ev.values())
+
+
+def jax_eval_draws(ja, jp, key, cfg):
+    """EvalDraws of ``make_jit_eval``'s pass under ``key`` (evaluate.py:199)."""
+    n = cfg.test_size
+    _, k_batch, k_loss, k_probe, k_edge = jax.random.split(key, 5)
+    k_rand, k_ppi, k_act, k_step = jax.random.split(k_batch, 4)
+    k_s0, _, k_mid, k_down = jax.random.split(k_loss, 4)
+    k_pb, k_im = jax.random.split(k_probe)
+    k_penv, k_pstep = jax.random.split(k_pb)
+    k_enc, k_trans = jax.random.split(k_im)
+    trans = jax_mid_draws(ja, jp, k_trans, n)
+    return teval.EvalDraws(
+        batch=tdata.RandomDraws(env_draws(k_rand, n), t(jax.random.uniform(k_ppi, (n, 4))),
+                                t(jax.random.gumbel(k_act, (n, 4))),
+                                respawn_draws(k_step, n, cfg.repeats)),
+        staged=teval.losses.StagedDraws(
+            eps_s0=jax_normal(jax.random.split(k_s0)[1], n),
+            mid=jax_mid_draws(ja, jp, k_mid, n), down=jax_down_draws(k_down, n)),
+        probe=teval.ProbeDraws(env_draws(k_penv, n), respawn_draws(k_pstep, n, cfg.repeats),
+                               jax_normal(jax.random.split(k_enc)[1], n), trans.masks,
+                               trans.eps),
+        edge=jax_rollout_draws(ja, jp, k_edge, 96 * 4, 1, sampled=False))
+
+
+def test_eval_pass_frames_match_jax(flagship, luts):
+    """The frames the figures draw: the eval batch's first 7 o0, o1 and
+    decoded o1, and the reward probe's real and imagined frames, against
+    ``make_jit_eval``'s under the same noise (sprite frames bit for bit,
+    decoded ones to 1e-4); and the reward probe's two errors, which read
+    those frames, to the loss tolerance."""
+    ja, jp, ta = flagship
+    jlut, tlut = luts
+    jcfg, tcfg = jconfig.Config(test_size=TEST_SIZE), tconfig.Config(test_size=TEST_SIZE)
+    key = jax.random.key(33)
+    want = jeval.make_jit_eval(ja, jcfg, jlut)(jp, jprecision.PrecisionState.create(), key)
+    got = teval.make_eval(ta, tcfg, tlut)(tprecision.PrecisionState.create(),
+                                          draws=jax_eval_draws(ja, jp, key, tcfg))
+    for k in ("o0", "o1", "o0_probe", "o1_probe"):
+        assert got[k].shape == (teval.N_PLOT, 1, 64, 64), k
+        np.testing.assert_array_equal(nhwc(got[k]), np.asarray(want[k]), err_msg=k)
+    for k in ("po1", "po1_probe"):
+        assert got[k].shape == (teval.N_PLOT, 1, 64, 64), k
+        np.testing.assert_allclose(nhwc(got[k]), np.asarray(want[k]), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    for k in ("mse_r", "deep_mse_o"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), err_msg=k, **LOSS_TOL)
+    assert set(want) <= set(got)

@@ -23,8 +23,10 @@ from deep_active_inference_mc_torch.utils import stats as stats_lib
 from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
+# No figures (tests/test_torch_viz.py draws them): matplotlib's ~18 s per
+# epoch on the CPU would dominate these runs.
 TINY = ["--device", "cpu", "--batch", "8", "--rounds", "3", "--test_size", "16",
-        "--sweep_envs", "8", "--sweep_steps", "2"]
+        "--sweep_envs", "8", "--sweep_steps", "2", "--viz_every", "1000"]
 
 
 def steps_of(state):
@@ -88,7 +90,7 @@ def test_typoed_flag_errors(tmp_path):
 
 
 @pytest.mark.parametrize("argv, part", [
-    (["--distill_every", "1"], "distill"),
+    (["--mesh_shape", "4", "--tp", "2"], "mesh"),
     (["--mesh_shape", "2"], "mesh"),
     (["--coordinator", "localhost:1234"], "mesh"),
     (["--bf16"], "bf16"),
