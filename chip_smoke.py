@@ -78,7 +78,27 @@ Phases (any failure exits non-zero and prints no result):
      epochs, then ``--resume`` for a third). Checks: finite stats, F
      falling from epoch 1 to 3, 2 K1 launches per round and 2 per eval,
      the figures drawn every epoch. Prints ms per round and peak memory.
- 11. one JSON line describing every hand-written kernel, the card's
+ 11. bf16 forwards at full width: the sweep CLI ``--bf16 --method ai`` at
+     1024 envs, 20 macro steps (ms/macro beside phase 3's float32); the
+     trainer ``--bf16`` at batch 512 with the flagship's flags, two epochs
+     of 20 rounds (ms/round beside phase 4's); ``--method mcts --mcts_fused
+     --bf16`` at 256 envs, 3 macro steps; one distillation iteration with
+     ``--bf16`` on phase 4's checkpoint. Checks: finite scores, stats and
+     metrics, K1's launches, the planner's G terms float32; prints the
+     card's bf16 shift from its float32 in G and in one round's losses (TF32
+     off) and the peak memory of each run.
+ 12. multi-device: R = the cards (at most 4), or 2 ranks sharing one card
+     over gloo. The trainer CLI ``--mesh_shape R`` at batch 512 with the
+     flagship's flags, one epoch of 20 rounds, saved, then resumed on one
+     rank for a second epoch; ``--mesh_shape R --tp 2`` for one epoch of 10
+     rounds; one injected-noise round at batch 8 and at 512 on R ranks (data
+     parallel, then tensor parallel) against one rank, TF32 off, to
+     tests/test_parallel.py's tolerances up to Adam's sign steps;
+     the sweep CLI ``--mesh R`` (ai, 1024 envs) against phase 3's scores;
+     two trainer processes meeting at ``--coordinator 127.0.0.1:<port>``
+     as hosts 0 and 1. Prints the backend, the ranks, the cards, ms/round
+     by rank and K1's launches per rank, which must be 2 per round.
+ 13. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 
@@ -95,6 +115,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -344,7 +365,8 @@ def phase_sweep(torch, smi: str, args) -> dict:
               f"{method}: {launches.get('render', 0)} render launches, want {SWEEP_MACRO}")
         env_steps = SWEEP_ENVS * SWEEP_MACRO * JUMPS / out["wall"]
         g_rows = SWEEP_ENVS * 4 * SWEEP_MACRO / out["wall"] if method == "ai" else 0.0
-        runs[method] = dict(launches=launches)
+        runs[method] = dict(launches=launches, scores=scores.cpu(),
+                            ms_macro=out["wall"] / SWEEP_MACRO * 1e3)
         print(f"[sweep] {method}: {SWEEP_ENVS} envs x {SWEEP_MACRO} macro x {JUMPS} jumps, "
               f"wall {out['wall']:.4f}s, {out['wall'] / SWEEP_MACRO * 1e3:.3f} ms/macro, "
               f"env-steps/s {env_steps:.4e}, G-rows/s {g_rows:.4e}, launches {launches} "
@@ -520,7 +542,9 @@ def phase_train(torch, smi: str, args, out_root: str) -> dict:
           f"{peak / 2 ** 20:.1f} MiB [{smi}]", flush=True)
     if args.profile:
         profile_rounds(torch, args.trace_dir)
-    return {"train": launches_first, "train_resume": launches_resumed}, resumed["folder"]
+    ms_round = [round(TRAIN_BATCH * repeats / sps * 1e3, 3) for sps in first["env_steps_per_s"]]
+    return ({"train": launches_first, "train_resume": launches_resumed}, resumed["folder"],
+            ms_round)
 
 
 def card_vs_cpu_inputs(torch):
@@ -1320,6 +1344,345 @@ def phase_causal(torch, smi: str, out_root: str, figures: dict) -> dict:
     return {"causal": launches, "causal_resume": launches_resumed}
 
 
+# ------------------------------------------------------------ slice 5
+def tf32_off(torch):
+    """Context: TF32 off for matmuls and convolutions (restored after)."""
+    @contextlib.contextmanager
+    def ctx():
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return ctx()
+
+
+def rel_rms(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
+
+
+def train_argv(out_root, epochs: int, rounds: int = 0, sweep_steps: int = 0) -> list:
+    """The training phase's trainer flags, figures off (a mesh's ranks are
+    processes of their own, without this script's figure recorders)."""
+    rounds, sweep_steps = rounds or TRAIN_ROUNDS, sweep_steps or TRAIN_SWEEP_STEPS
+    return ["--batch", str(TRAIN_BATCH), *TRAIN_FLAGS, "--test_size", str(TRAIN_TEST_SIZE),
+            "--sweep_envs", str(TRAIN_SWEEP_ENVS), "--rounds", str(rounds), "--sweep_steps",
+            str(sweep_steps), "--epochs", str(epochs), "--save_every", "1", "--viz_every",
+            "1000", "--out_root", str(out_root)]
+
+
+def check_stats(torch, tag: str, stats: dict) -> None:
+    for k, series in stats.items():
+        check(all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in series),
+              f"{tag}: non-finite stats series {k}")
+
+
+def phase_bf16(torch, dev, smi: str, f32_ms_macro: float, f32_ms_round: list,
+               checkpoint: Path, out_root: str) -> dict:
+    """bf16 forwards through the sweep, trainer, planner and distillation
+    CLIs at full width, the planner's float32 G and the card's bf16 shift
+    from its float32 (TF32 off). Returns K1's launch counts."""
+    import copy
+
+    from deep_active_inference_mc_torch.apps import distill as distill_app
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.apps import train as train_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.infer import efe
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+    from deep_active_inference_mc_torch.train import loop as train_loop
+
+    runs = {}
+    peak = lambda: f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB"
+    # (a) the ai sweep.
+    base = ["--envs", str(SWEEP_ENVS), "--jumps", str(JUMPS), "--steps", "1", "--samples", "1",
+            "--seed", "0", "--method", "ai", "--bf16"]
+    sweep_app.main(base + ["--macro", "2"])  # warm-up: cuDNN picks its bf16 algorithms
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    out = sweep_app.main(base + ["--macro", str(SWEEP_MACRO)])
+    runs["sweep_ai_bf16"] = dict(LAUNCHES)
+    check(bool(torch.isfinite(out["scores"]).all()), "bf16 ai sweep: non-finite scores")
+    check(runs["sweep_ai_bf16"].get("render", 0) == SWEEP_MACRO, "bf16 ai sweep: K1 launches")
+    ms = out["wall"] / SWEEP_MACRO * 1e3
+    print(f"[bf16] ai sweep: {SWEEP_ENVS} envs x {SWEEP_MACRO} macro, {ms:.3f} ms/macro "
+          f"(float32, phase 3: {f32_ms_macro:.3f}), env-steps/s "
+          f"{SWEEP_ENVS * SWEEP_MACRO * JUMPS / out['wall']:.4e}, peak {peak()} [{smi}]",
+          flush=True)
+
+    # (b) the trainer: one epoch at the training phase's batch and flags.
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    out = train_app.main(train_argv(Path(out_root) / "bf16", 2) + ["--bf16"])
+    runs["train_bf16"] = dict(LAUNCHES)
+    check_stats(torch, "bf16 train", out["stats"])
+    check(out["round_launches"] == [2 * TRAIN_ROUNDS] * 2,
+          f"bf16 train: K1 launches in the rounds {out['round_launches']}")
+    repeats = train_config().repeats
+    ms = [round(TRAIN_BATCH * repeats / sps * 1e3, 3) for sps in out["env_steps_per_s"]]
+    print(f"[bf16] train: 2 epochs of {TRAIN_ROUNDS} rounds at batch {TRAIN_BATCH}, {ms} "
+          f"ms/round by epoch (float32, phase 4's first run: {f32_ms_round}), F_down "
+          f"{out['stats']['F_down'][-1]:.2f}, peak {peak()} [{smi}]", flush=True)
+
+    # (c) the fused planner.
+    mcts = ["--method", "mcts", "--jumps", str(JUMPS), "--seed", "0", "--envs", str(MCTS_ENVS),
+            "--mcts_fused", "--bf16"]
+    sweep_app.main(mcts + ["--macro", "1", "--mcts_repeats", "2"])  # warm-up
+    log = []
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    with recorded_plans(torch, log):
+        out = sweep_app.main(mcts + ["--macro", str(MCTS_MACRO)])
+    runs["sweep_mcts_fused_bf16"] = dict(LAUNCHES)
+    check(bool(torch.isfinite(out["scores"]).all()), "bf16 mcts: non-finite scores")
+    check(len(log) == MCTS_MACRO and runs["sweep_mcts_fused_bf16"].get("render", 0) == MCTS_MACRO,
+          "bf16 mcts: plans or K1 launches")
+    report_plans(torch, "mcts_fused_bf16", log, MCTS_ENVS, MCTS_MACRO, out["wall"],
+                 runs["sweep_mcts_fused_bf16"], smi)
+
+    # (d) one short distillation run on phase 4's checkpoint.
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    res = distill_app.main(["-n", str(checkpoint), "-o", str(Path(out_root) / "distilled_bf16"),
+                            "--iters", "1", "--distill_macro", "2", "--sweep_envs",
+                            str(TRAIN_SWEEP_ENVS), "--sweep_steps", "2", "--bf16"])
+    runs["distill_bf16"] = dict(LAUNCHES)
+    check(all(math.isfinite(v) for m in res["metrics"] for v in m.values()),
+          f"bf16 distill: metrics {res['metrics']}")
+    print(f"[bf16] distill: 1 iteration of 2 decisions at {res['cfg'].distill_envs} envs, "
+          f"metrics {res['metrics'][0]}, readouts {res['readouts']}, peak {peak()} [{smi}]",
+          flush=True)
+
+    # (e) float32 G in the planner; the bf16 shift in G and in one round.
+    cfg = train_config()
+    agent = sweep_app.build_agent(Config(), "", dev)
+    agent_bf16 = sweep_app.build_agent(Config(), "", dev, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(3)
+    p = mcts_lib.MCTSParams(repeats=MCTS_REPEATS, fused_eval=True, max_depth=MCTS_MAX_DEPTH)
+    with torch.inference_mode():
+        s = torch.randn((MCTS_ENVS, 10), generator=g, device=dev)
+        terms = mcts_lib._fused_expand_sim(agent_bf16, s, p, generator=g)
+    check(all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in terms),
+          f"bf16 planner: G terms {[t.dtype for t in terms]}")
+    lut = raster.build_sprite_lut(dev)
+    env = env_lib.randomize(env_lib.reset(g, SWEEP_ENVS, dev), g)
+    rollout = efe.draw_rollout(agent, SWEEP_ENVS, SWEEP_ENVS * 4, g, dev, steps=1,
+                               calc_mean=True, samples=1, mean_estimator=True)
+    draws = train_loop.draw_round(agent, cfg, TRAIN_BATCH, g, dev)
+    with tf32_off(torch):
+        with torch.inference_mode():
+            o = env_lib.render(lut, env)
+            G = [efe.calculate_G_4_repeated(a, o, steps=1, calc_mean=True, samples=1,
+                                            draws=rollout)[0] for a in (agent, agent_bf16)]
+        losses = []
+        for a in (agent, agent_bf16):
+            state = train_loop.TrainState(
+                a, train_loop.make_optimizers(cfg, a),
+                train_loop.PrecisionState.create(cfg.gamma, cfg.beta_s, cfg.beta_o, dev),
+                env_lib.reset(g, TRAIN_BATCH, dev))
+            _, m = train_loop.make_round_fn(cfg, lut)(state, draws=copy.deepcopy(draws))
+            losses.append({k: float(m[k]) for k in ("F_top", "F_mid", "F_down")})
+    check(bool(torch.isfinite(G[1]).all()) and G[1].dtype == torch.float32, "bf16 G")
+    check(all(math.isfinite(v) for v in losses[1].values()), f"bf16 round: {losses[1]}")
+    shift = {k: abs(losses[1][k] - losses[0][k]) / abs(losses[0][k]) for k in losses[0]}
+    print(f"[bf16] the card's bf16 shift from its float32, TF32 off: G of {SWEEP_ENVS} x 4 rows "
+          f"rel RMS {rel_rms(torch, G[1], G[0]):.3e}, max |diff| "
+          f"{(G[1] - G[0]).abs().max().item():.3e} (G rms "
+          f"{G[0].double().square().mean().sqrt().item():.1f}); one round at batch "
+          f"{TRAIN_BATCH}, relative: " + ", ".join(f"{k} {v:.3e}" for k, v in shift.items()),
+          flush=True)
+    return runs
+
+
+def mesh_round(mesh, cases, tf32: bool):
+    """Rank body of phase 12's injected-noise rounds: for each (cfg, full
+    weights, global draws) of ``cases``, one round on this rank's shard, on
+    its card. Returns the metrics and the full weights after each."""
+    import torch
+
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
+    from deep_active_inference_mc_torch.train import loop as train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    dev = mesh.device
+    lut = raster.build_sprite_lut(dev)
+    out = []
+    for cfg, sd, draws in cases:
+        agent = sweep_app.build_agent(Config(), "", dev)
+        agent.load_state_dict(sd)
+        state = train_loop.TrainState(
+            agent, train_loop.make_optimizers(cfg, agent),
+            train_loop.PrecisionState.create(cfg.gamma, cfg.beta_s, cfg.beta_o, dev),
+            env_lib.reset(torch.Generator(device=dev).manual_seed(0), cfg.batch, dev))
+        state = mesh_lib.shard_train_state(state, mesh, cfg)
+        _, m = train_loop.make_round_fn(cfg, lut, mesh)(state, draws=to_device(draws, dev))
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "params": mesh_lib.full_state_dict(state.agent, mesh)})
+    return out
+
+
+def phase_mesh(torch, dev, smi: str, f32_ai: dict, out_root: str) -> dict:
+    """Multi-device training and sweeps: the trainer CLI on R ranks, a
+    single-rank resume of its checkpoint, tensor parallelism, one sharded
+    round against one rank on injected noise, the sharded sweep against
+    phase 3's, and two coordinated host processes. Returns K1's launch
+    counts per rank."""
+    import copy
+    import socket
+
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.apps import train as train_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
+    from deep_active_inference_mc_torch.train import loop as train_loop
+
+    n_cards = torch.cuda.device_count()
+    R = min(n_cards, 4) if n_cards >= 2 else 2
+    backend = "nccl" if n_cards >= R else "gloo"
+    print(f"[mesh] {R} ranks on {n_cards} card(s), backend {backend}"
+          f"{' (the ranks share one card: not scaling)' if n_cards < R else ''}", flush=True)
+    repeats = train_config().repeats
+    runs = {}
+    root = Path(out_root) / "mesh"
+
+    def check_mesh_run(tag, out, ranks, epochs, rounds=TRAIN_ROUNDS):
+        check(len(out["ranks"]) == ranks, f"{tag}: {len(out['ranks'])} ranks")
+        check_stats(torch, tag, out["stats"])
+        for r in out["ranks"]:
+            check(r["backend"] == backend, f"{tag}: rank {r['rank']} on {r['backend']}")
+            check(r["round_launches"] == [2 * rounds] * epochs,
+                  f"{tag}: rank {r['rank']} K1 launches in the rounds {r['round_launches']}, "
+                  f"want {2 * rounds} per epoch (2 per round)")
+            check(set(r["adam_steps"].values()) == {epochs * rounds},
+                  f"{tag}: rank {r['rank']} Adam steps {r['adam_steps']}")
+            runs[f"{tag}_rank{r['rank']}"] = {"render": sum(r["round_launches"])}
+        ms = [TRAIN_BATCH * repeats / r["env_steps_per_s"][-1] * 1e3 for r in out["ranks"]]
+        print(f"[mesh] {tag}: {out['ranks'][0]['mesh']}; {epochs} epoch(s) of {rounds} "
+              f"rounds at global batch {TRAIN_BATCH}, ms/round by rank "
+              f"{[round(x, 3) for x in ms]}, K1 launches per rank in the rounds "
+              f"{[sum(r['round_launches']) for r in out['ranks']]} (2 per round, at "
+              f"{TRAIN_BATCH // (ranks // out['cfg'].tp)} envs per rank), devices "
+              f"{sorted({r['device'] for r in out['ranks']})} [{smi}]", flush=True)
+
+    # (a) data parallel, one epoch, saved.
+    out = train_app.main(train_argv(root / "dp", 1) + ["--mesh_shape", str(R)])
+    check_mesh_run("train_mesh", out, R, 1)
+    # (b) the mesh's checkpoint resumed on one rank.
+    res = train_app.main(train_argv(root / "dp", 2) + ["--resume"])
+    check(res["start_epoch"] == 2 and set(adam_steps(res["state"]).values()) == {
+        2 * TRAIN_ROUNDS}, f"single-rank resume of the mesh checkpoint: epoch "
+        f"{res['start_epoch']}, Adam {adam_steps(res['state'])}")
+    check(res["stats"]["F"][:1] == out["stats"]["F"], "resume: the mesh's stats were not kept")
+    print(f"[mesh] the {R}-rank checkpoint resumed on one rank at epoch 2, Adam steps "
+          f"{adam_steps(res['state'])}, "
+          f"{TRAIN_BATCH * repeats / res['env_steps_per_s'][-1] * 1e3:.3f} ms/round", flush=True)
+    # (c) tensor parallel; depth cut to half an epoch, since ranks sharing
+    # one card stage each of its ~100 collectives per round through the host.
+    tp_rounds = TRAIN_ROUNDS // 2
+    out = train_app.main(train_argv(root / "tp", 1, rounds=tp_rounds)
+                         + ["--mesh_shape", str(R), "--tp", "2"])
+    check_mesh_run("train_mesh_tp2", out, R, 1, tp_rounds)
+
+    # (d) one injected-noise round, sharded against one rank, TF32 off, at
+    # tests/test_parallel.py's batch of 8 and at the training phase's 512,
+    # to that test's tolerances. As its docstring says of the JAX mesh, the
+    # weights agree "up to Adam's step-1 sign-noise on near-zero-gradient
+    # elements": where a gradient entry cancels to rounding noise, the
+    # reduction order picks its sign, and Adam's first step (lr * g/|g|)
+    # follows it. An entry beyond the tolerance is accepted only as such a
+    # step (off by at most 2 lr of its layer), and only in 1 of 10^4.
+    cases = []
+    for batch, seed in ((8, 7), (TRAIN_BATCH, 8)):
+        cfg = Config.from_args(TRAIN_FLAGS, batch=batch)
+        agent = sweep_app.build_agent(Config(), "", torch.device("cpu"))
+        draws = train_loop.draw_round(agent, cfg, batch, torch.Generator().manual_seed(seed),
+                                      torch.device("cpu"))
+        cases.append((cfg, copy.deepcopy(agent.state_dict()), draws))
+    with tf32_off(torch):
+        refs = mesh_round(mesh_lib.Mesh(0, 1, 1, dev, "none"), cases, False)
+    keys = ("F_down", "omega", "gnorm_top", "gnorm_mid", "gnorm_down")
+    for tp, atol in ((1, 5e-5), (2, 3e-4)):
+        got = mesh_lib.launch(mesh_round, (cases, False), world=R, n_model=tp)
+        for (cfg, _, _), ref, *by_rank in zip(cases, refs, *got):
+            lr = {"top": cfg.l_rate_top, "mid": cfg.l_rate_mid, "down": cfg.l_rate_down}
+            rel = {k: max(abs(g["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+                          for g in by_rank) for k in keys}
+            worst, steps, bad = 0.0, 0, 0
+            for g in by_rank:
+                for k, v in ref["params"].items():
+                    d = (g["params"][k] - v.cpu()).abs()
+                    worst = max(worst, float(d.max()))
+                    beyond = d > atol
+                    steps += int(beyond.sum())
+                    bad += int((d[beyond] > 2.002 * lr[k.split(".")[0]]).sum())
+            n = sum(v.numel() for v in ref["params"].values()) * len(by_rank)
+            for k, v in rel.items():
+                check(v <= 2e-3, f"sharded round B={cfg.batch} tp={tp}: {k} rel diff {v:.3e}")
+            check(bad == 0 and steps <= n * 1e-4,
+                  f"sharded round B={cfg.batch} tp={tp}: {steps} weights beyond atol {atol}, "
+                  f"{bad} of them more than an Adam step off")
+            print(f"[mesh] one round, batch {cfg.batch}, {R} ranks, tp {tp}, injected noise, "
+                  f"TF32 off, against one rank (worst rank): rel diff " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in rel.items()) + f" (rtol 2e-3); weights max "
+                  f"|diff| {worst:.3e}, within atol {atol} but {steps} of {n} (over the ranks), "
+                  f"each an Adam sign step", flush=True)
+
+    # (e) the sharded ai sweep against phase 3's single-rank sweep.
+    base = ["--envs", str(SWEEP_ENVS), "--jumps", str(JUMPS), "--steps", "1", "--samples", "1",
+            "--seed", "0", "--method", "ai", "--macro", str(SWEEP_MACRO), "--mesh", str(R)]
+    out = sweep_app.main(base)
+    same = int((out["scores"] == f32_ai["scores"]).sum())
+    print(f"[mesh] ai sweep, {SWEEP_ENVS} envs x {SWEEP_MACRO} macro over {R} ranks: "
+          f"{same} of {SWEEP_ENVS} scores equal phase 3's single-rank sweep; mean "
+          f"{float(out['scores'].mean()):.4f} against {float(f32_ai['scores'].mean()):.4f}; "
+          f"{out['wall'] / SWEEP_MACRO * 1e3:.3f} ms/macro (one rank: "
+          f"{f32_ai['ms_macro']:.3f}) [{smi}]", flush=True)
+    check(same == SWEEP_ENVS, f"mesh ai sweep: {SWEEP_ENVS - same} scores differ from one rank's")
+
+    # (f) two host processes meeting at a coordinator on this machine.
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    argv = train_argv(root / "hosts", 1, rounds=4, sweep_steps=2)
+    procs = []
+    for h in (0, 1):
+        env = dict(os.environ)
+        if n_cards >= 2:
+            env["CUDA_VISIBLE_DEVICES"] = str(h)
+        else:
+            env["DAIF_DIST_BACKEND"] = "gloo"  # the two hosts share the one card
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"{PACKAGE}.apps.train", *argv, "--coordinator",
+             f"127.0.0.1:{port}", "--num_hosts", "2", "--host_id", str(h)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [pr.communicate(timeout=300)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for h, (pr, text) in enumerate(zip(procs, outs)):
+        check(pr.returncode == 0, f"host {h} exited {pr.returncode}:\n{text[-3000:]}")
+    lines = [[ln for ln in text.splitlines() if ", F: " in ln] for text in outs]
+    check(len(lines[0]) == 1 and not lines[1], f"coordinated hosts: epoch lines {lines}")
+    print(f"[mesh] two host processes at 127.0.0.1:{port}: "
+          f"{[ln for ln in outs[0].splitlines() if ln.startswith('mesh:')]}; host 0: "
+          f"{lines[0][0][:60]}...; host 1 printed and wrote nothing", flush=True)
+    return runs
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
@@ -1362,13 +1725,13 @@ def main() -> None:
     LAUNCHES.clear()  # the comparison launches above do not count
 
     # ---- 3. the serving path at full width -------------------------------
-    runs = {f"sweep_{method}": r["launches"] for method, r in
-            phase_sweep(torch, smi, args).items()}
+    sweeps = phase_sweep(torch, smi, args)
+    runs = {f"sweep_{method}": r["launches"] for method, r in sweeps.items()}
 
     figures = {}
     with tempfile.TemporaryDirectory() as work, figure_recorders(torch, figures):
         # ---- 4. the training path at full width --------------------------
-        train_runs, train_folder = phase_train(torch, smi, args, work)
+        train_runs, train_folder, f32_ms_round = phase_train(torch, smi, args, work)
         runs.update(train_runs)
 
         # ---- 5. card against CPU -----------------------------------------
@@ -1396,7 +1759,14 @@ def main() -> None:
         # ---- 10. the causal trainer ----------------------------------------
         runs.update(phase_causal(torch, smi, work, figures))
 
-    # ---- 11. result lines ------------------------------------------------
+        # ---- 11. bf16 forwards ---------------------------------------------
+        runs.update(phase_bf16(torch, dev, smi, sweeps["ai"]["ms_macro"], f32_ms_round,
+                               train_folder / "checkpoints", work))
+
+        # ---- 12. multi-device --------------------------------------------
+        runs.update(phase_mesh(torch, dev, smi, sweeps["ai"], work))
+
+    # ---- 13. result lines ------------------------------------------------
     # K1's row: the launches of the training run (this system's main path)
     # and the times at its batch; the other paths and sizes beside them.
     for path, launches in runs.items():

@@ -50,6 +50,7 @@ from deep_active_inference_mc_torch.envs import dsprites as env_lib
 from deep_active_inference_mc_torch.envs import raster
 from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+from deep_active_inference_mc_torch.utils import compcache
 from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_generator
 
 DURATION_OF_EXPERIMENT = 1000
@@ -488,6 +489,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    compcache.enable_persistent_cache()
     agent = sweep_app.build_agent(Config(), args.network, device)
     if args.network:
         print(f"Loaded checkpoint from {args.network}")

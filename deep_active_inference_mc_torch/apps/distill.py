@@ -17,8 +17,10 @@ trainer (``--resume``), the sweep CLI and the demo (``-n``) load.
 ``--keep_opt`` keeps the checkpoint's top Adam state; by default it is
 reset, because a long soft-teacher run leaves Adam's second moments large
 and the distill steps small. ``--patience N`` stops after N readouts
-without a new best (0: run all ``--iters``). The default device is
-``cuda``; ``--device cpu`` runs on the CPU.
+without a new best (0: run all ``--iters``). ``--bf16`` runs the
+networks' forwards in bfloat16 (the planner scores G in float32; the habit
+net's weights and Adam stay float32). The default device is ``cuda``;
+``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+import torch
 
 from deep_active_inference_mc_torch.apps import train as train_app
 from deep_active_inference_mc_torch.config import Config
@@ -35,6 +39,7 @@ from deep_active_inference_mc_torch.train import loop as train_loop
 from deep_active_inference_mc_torch.train import sweep as sweep_lib
 from deep_active_inference_mc_torch.train.distill import Distiller
 from deep_active_inference_mc_torch.utils import checkpoint as ckpt
+from deep_active_inference_mc_torch.utils import compcache
 from deep_active_inference_mc_torch.utils import stats as stats_lib
 from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_generator
 
@@ -57,12 +62,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", type=str, default="cuda")
     known, rest = parser.parse_known_args(argv)
     cfg = Config.from_args(rest)
-    if cfg.bf16:
-        raise NotImplementedError("--bf16: bfloat16 forwards are not ported yet")
     device = resolve_device(known.device)
+    compcache.enable_persistent_cache()
 
     agent = ActiveInferenceAgent(s_dim=cfg.s_dim, pi_dim=cfg.pi_dim,
-                                 colour_channels=cfg.colour_channels, resolution=cfg.resolution)
+                                 colour_channels=cfg.colour_channels, resolution=cfg.resolution,
+                                 dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
     lut = raster.build_sprite_lut(device)
     gen = seeded_generator(device, train_app.RUN_SEED)
     state = train_loop.create_train_state(cfg, agent, gen, device)

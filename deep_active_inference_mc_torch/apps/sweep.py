@@ -15,6 +15,14 @@ port checkpoint dir (the trainer's or ``apps/distill.py``'s); without it the
 agent is a seeded He-uniform init. Prints one result row in
 the JAX CLI's format. ``--device cpu`` runs on the CPU; the default
 ``cuda`` raises on a machine without a card.
+
+``--bf16`` runs the networks' forwards in bfloat16 (G is scored in
+float32). ``--mesh`` shards the envs over one rank per visible card
+(``--mesh N``: N ranks; ranks share a card over gloo when there are fewer
+cards, and run on the CPU with ``--device cpu``); the ``ai``, ``t1``,
+``t12``, ``habit``, ``random`` and ``expert`` scores equal the single-rank
+sweep's at the same seed (``train/sweep.py``). The bucketed planner runs on
+one rank.
 """
 
 from __future__ import annotations
@@ -29,20 +37,22 @@ import torch
 from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import raster
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.plan.mcts import MCTSParams
 from deep_active_inference_mc_torch.train import sweep as sweep_lib
 from deep_active_inference_mc_torch.utils import checkpoint as ckpt
-from deep_active_inference_mc_torch.utils import convert
+from deep_active_inference_mc_torch.utils import compcache, convert
 from deep_active_inference_mc_torch.utils.device import resolve_device
 
 
-def build_agent(cfg: Config, network: str, device: torch.device) -> ActiveInferenceAgent:
-    """The flagship-width agent: weights from a port checkpoint dir or a
-    params ``.npz`` or, when ``network`` is empty, a seeded init (seed 0,
-    drawn on the CPU)."""
+def build_agent(cfg: Config, network: str, device: torch.device,
+                dtype=torch.float32) -> ActiveInferenceAgent:
+    """The flagship-width agent computing in ``dtype``: weights from a port
+    checkpoint dir or a params ``.npz`` or, when ``network`` is empty, a
+    seeded init (seed 0, drawn on the CPU)."""
     agent = ActiveInferenceAgent(s_dim=cfg.s_dim, pi_dim=cfg.pi_dim,
                                  colour_channels=cfg.colour_channels,
-                                 resolution=cfg.resolution)
+                                 resolution=cfg.resolution, dtype=dtype)
     if network and Path(network).is_dir():
         ckpt.load_weights(network, agent)
     elif network:
@@ -115,6 +125,12 @@ def main(argv=None) -> dict:
                         help="Macro-steps per chunk (one host sync each).")
     parser.add_argument("--env_chunk", type=int, default=0,
                         help="Env-batch width per group (0 = full batch).")
+    parser.add_argument("--mesh", type=int, nargs="?", const=0, default=None,
+                        help="Shard the envs over one rank per visible card (--mesh N: "
+                        "N ranks).")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 model forwards (G scoring stays float32); the "
+                        "planner's fused+bf16 fast path.")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
@@ -122,10 +138,26 @@ def main(argv=None) -> dict:
         raise SystemExit("--mcts_bucketed requires --method mcts")
 
     device = resolve_device(args.device)
+    compcache.enable_persistent_cache()
+    if args.mesh is not None and not args.mcts_bucketed:
+        world = args.mesh or (torch.cuda.device_count() if device.type == "cuda" else 1)
+        if world > 1 or mesh_lib.in_launched_group():
+            return mesh_lib.launch(_sweep, (args,), world=world, device=args.device)[0]
+    return _sweep(None, args)
+
+
+def _sweep(mesh, args: argparse.Namespace) -> dict:
+    """The sweep on one rank (``mesh`` None: the single-rank run)."""
+    device = mesh.device if mesh else resolve_device(args.device)
+    primary = mesh is None or mesh.is_primary
     cfg = Config()
-    agent = build_agent(cfg, args.network, device)
-    print(f"Loaded weights from {args.network}" if args.network
-          else "Untrained weights (no -n).")
+    agent = build_agent(cfg, args.network, device,
+                        torch.bfloat16 if args.bf16 else torch.float32)
+    if primary:
+        if mesh is not None:
+            print(mesh.describe(), flush=True)
+        print(f"Loaded weights from {args.network}" if args.network
+              else "Untrained weights (no -n).")
     lut = raster.build_sprite_lut(device)
 
     mcts_params = MCTSParams(
@@ -150,9 +182,12 @@ def main(argv=None) -> dict:
             env_chunk=args.env_chunk or None, steps=args.steps,
             samples=args.samples, jumps=args.jumps, temperature=args.temp,
             calc_mean=not args.sample_G, crn=args.crn, mcts_params=mcts_params,
-            plan_queue=args.plan_queue, queue_cap=args.queue_cap,
+            plan_queue=args.plan_queue, queue_cap=args.queue_cap, mesh=mesh,
         )
     dt = time.time() - t0
+    out["wall"] = dt
+    if not primary:
+        return out
     frames = args.envs * args.macro * args.jumps
     queued = args.plan_queue and args.method in sweep_lib.QUEUE_METHODS
     label = ("+queue" + (f"cap{args.queue_cap}" if args.queue_cap else "")) if queued else ""
@@ -169,7 +204,6 @@ def main(argv=None) -> dict:
         f"env_steps/s={frames / dt:.3e} wall={dt:.1f}s",
         flush=True,
     )
-    out["wall"] = dt
     return out
 
 

@@ -30,6 +30,7 @@ from deep_active_inference_mc_torch.models.causal import StructuralCausalModel
 from deep_active_inference_mc_torch.train import causal as causal_lib
 from deep_active_inference_mc_torch.utils import checkpoint as ckpt
 from deep_active_inference_mc_torch.utils import stats as stats_lib
+from deep_active_inference_mc_torch.utils import compcache
 from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_generator
 from deep_active_inference_mc_torch.viz import generate_traversals as traversals_lib
 from deep_active_inference_mc_torch.viz import nhwc
@@ -54,6 +55,7 @@ def main(argv=None) -> dict:
     overrides = {"batch": known.batch} if known.batch else {}
     cfg = Config.from_args(rest, prefix="causal_model_", **overrides)
     device = resolve_device(known.device)
+    compcache.enable_persistent_cache()
 
     folder, folder_chp = cfg.folder, cfg.folder_chp
     folder_chp.mkdir(parents=True, exist_ok=True)

@@ -11,6 +11,9 @@ keep-masks; encoder and decoder run without dropout unless masks are given
 (only the training losses give them, under ``vae_train_dropout``). Serving
 runs under ``torch.inference_mode()``; the training round's generator half
 runs under ``torch.no_grad()``, because its tensors feed the losses.
+
+``dtype`` is the networks' compute dtype (``torch.bfloat16`` for the bf16
+forwards); the weights stay float32 and every head returns float32.
 """
 
 from __future__ import annotations
@@ -35,16 +38,17 @@ class ActiveInferenceAgent(nn.Module):
     """Habit net (``top``), transition net (``mid``) and VAE (``down``)."""
 
     def __init__(self, s_dim: int = 10, pi_dim: int = 4, colour_channels: int = 1,
-                 resolution: int = 64):
+                 resolution: int = 64, dtype=torch.float32):
         super().__init__()
         self.s_dim = s_dim
         self.pi_dim = pi_dim
         self.colour_channels = colour_channels
         self.resolution = resolution
-        self.top = HabitNet(s_dim=s_dim, pi_dim=pi_dim)
-        self.mid = TransitionNet(s_dim=s_dim, pi_dim=pi_dim)
+        self.dtype = dtype
+        self.top = HabitNet(s_dim=s_dim, pi_dim=pi_dim, dtype=dtype)
+        self.mid = TransitionNet(s_dim=s_dim, pi_dim=pi_dim, dtype=dtype)
         self.down = VAE(s_dim=s_dim, colour_channels=colour_channels,
-                        resolution=resolution)
+                        resolution=resolution, dtype=dtype)
         self.register_buffer("pi_one_hot", torch.eye(pi_dim), persistent=False)
 
     # ------------------------------------------------------------------ init

@@ -22,6 +22,19 @@ layer; each network's ``draw_masks`` draws them from a generator) or
 Flax does.
 Weights start He-uniform with Flax's fan-in (``kh*kw*in`` for both conv
 kinds, ``in`` for dense) and zero biases.
+
+``dtype`` is the compute dtype, with Flax's ``dtype=`` semantics: every
+layer casts its input, weight and bias to it (parameters stay float32, so
+gradients reach float32 weights), and each head casts its output back to
+float32 (logits, the Gaussian heads, the decoder's pre-sigmoid frame), as
+the JAX networks do. The casts are explicit, not ``torch.autocast``, which
+would keep softmax, exp, log and reductions in float32 on a card and not on
+the CPU. Under float32 every cast is a no-op.
+
+Tensor parallel (``parallel/mesh.py``): a ``Dense`` may hold one Megatron
+shard, column- or row-parallel. Dropout masks are still drawn at full width
+(``draw_masks``), and each column-parallel layer keeps its own columns of
+them, so a sharded forward uses the noise of the single-rank one.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from deep_active_inference_mc_torch.parallel.comm import copy_to_model, reduce_from_model
 
 # Both Gaussian heads clip logvar to +-10 so exp(logvar) cannot overflow
 # when untrained nets feed samples back autoregressively.
@@ -67,6 +82,54 @@ def _dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torc
     return torch.where(mask, x / (1.0 - rate), 0.0)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype``, optionally one Megatron
+    shard over ``group`` (``parallel/mesh.py`` sets ``split``):
+
+      - "col": this rank's rows of the weight and of the bias (its output
+        columns); the input goes through Megatron's *f*;
+      - "row": this rank's columns of the weight (its input rows); the
+        partial products are summed by Megatron's *g*, then the whole bias
+        is added once.
+    """
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+        self.split: Optional[str] = None
+        self.group = None
+        self.shard = (0, 1)  # (rank, size) in the model group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.split == "row":
+            y = reduce_from_model(F.linear(x.to(dt), self.weight.to(dt)), self.group)
+            return y + self.bias.to(dt)
+        if self.split == "col":
+            x = copy_to_model(x, self.group)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+    def cols(self, t: torch.Tensor) -> torch.Tensor:
+        """This shard's output columns of a full-width (..., out) tensor."""
+        if self.split != "col":
+            return t
+        return t.narrow(-1, self.shard[0] * self.out_features, self.out_features)
+
+
+def _mask(layer: Dense, masks: Masks, i: int) -> Optional[torch.Tensor]:
+    return None if masks is None else layer.cols(masks[i])
+
+
+def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                    layer.stride, layer.padding)
+
+
+def _deconv(layer: nn.ConvTranspose2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    return F.conv_transpose2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                              layer.stride, layer.padding)
+
+
 def he_uniform_init_(module: nn.Module, generator: torch.Generator) -> None:
     """He-uniform weights with Flax's fan-in, zero biases, for every
     Linear / Conv2d / ConvTranspose2d in ``module``."""
@@ -88,16 +151,16 @@ def he_uniform_init_(module: nn.Module, generator: torch.Generator) -> None:
 class HabitNet(nn.Module):
     """s -> (logits, Q(pi|s), log Q(pi|s))."""
 
-    def __init__(self, s_dim: int = 10, pi_dim: int = 4):
+    def __init__(self, s_dim: int = 10, pi_dim: int = 4, dtype=torch.float32):
         super().__init__()
         self.fc = nn.ModuleList([
-            nn.Linear(s_dim, 128), nn.Linear(128, 128), nn.Linear(128, pi_dim),
+            Dense(s_dim, 128, dtype), Dense(128, 128, dtype), Dense(128, pi_dim, dtype),
         ])
 
     def forward(self, s: torch.Tensor):
         x = F.relu(self.fc[0](s))
         x = F.relu(self.fc[1](x))
-        logits = self.fc[2](x)
+        logits = self.fc[2](x).float()
         q_pi = torch.softmax(logits, dim=-1)
         return logits, q_pi, torch.log(q_pi + 1e-20)
 
@@ -107,13 +170,13 @@ class TransitionNet(nn.Module):
     (MC dropout); ``None`` gives the mean-field net."""
 
     def __init__(self, s_dim: int = 10, pi_dim: int = 4, hidden: int = 512,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, dtype=torch.float32):
         super().__init__()
         self.hidden = hidden
         self.dropout_rate = dropout_rate
         self.fc = nn.ModuleList([
-            nn.Linear(pi_dim + s_dim, hidden), nn.Linear(hidden, hidden),
-            nn.Linear(hidden, hidden), nn.Linear(hidden, 2 * s_dim),
+            Dense(pi_dim + s_dim, hidden, dtype), Dense(hidden, hidden, dtype),
+            Dense(hidden, hidden, dtype), Dense(hidden, 2 * s_dim, dtype),
         ])
 
     def draw_masks(self, rows: int, generator: torch.Generator, device) -> List[torch.Tensor]:
@@ -123,8 +186,8 @@ class TransitionNet(nn.Module):
         x = torch.cat([pi, s0], dim=-1)
         for i in range(3):
             x = F.relu(self.fc[i](x))
-            x = _dropout(x, None if masks is None else masks[i], self.dropout_rate)
-        mean, logvar = torch.chunk(self.fc[3](x), 2, dim=-1)
+            x = _dropout(x, _mask(self.fc[i], masks, i), self.dropout_rate)
+        mean, logvar = torch.chunk(self.fc[3](x).float(), 2, dim=-1)
         return mean, _clip_logvar(logvar)
 
 
@@ -132,32 +195,33 @@ class Encoder(nn.Module):
     """Q(s|o): 4 stride-2 SAME convs + 3 FC(256) with dropout -> (mean, logvar)."""
 
     def __init__(self, s_dim: int = 10, colour_channels: int = 1,
-                 resolution: int = 64, dropout_rate: float = 0.5):
+                 resolution: int = 64, dropout_rate: float = 0.5, dtype=torch.float32):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.compute_dtype = dtype
         chans = (colour_channels, 32, 32, 64, 64)
         self.conv = nn.ModuleList([
             nn.Conv2d(chans[i], chans[i + 1], 3, stride=2) for i in range(4)
         ])
         flat = (resolution // 16) ** 2 * 64
+        self.widths = (256, 256, 256)  # of the dropout layers, at full width
         self.fc = nn.ModuleList([
-            nn.Linear(flat, 256), nn.Linear(256, 256), nn.Linear(256, 256),
-            nn.Linear(256, 2 * s_dim),
+            Dense(flat, 256, dtype), Dense(256, 256, dtype), Dense(256, 256, dtype),
+            Dense(256, 2 * s_dim, dtype),
         ])
 
     def draw_masks(self, rows: int, generator: torch.Generator, device) -> List[torch.Tensor]:
-        return _draw_masks(rows, [fc.out_features for fc in self.fc[:3]],
-                           self.dropout_rate, generator, device)
+        return _draw_masks(rows, self.widths, self.dropout_rate, generator, device)
 
     def forward(self, o: torch.Tensor, masks: Masks = None):
         x = o
         for conv in self.conv:
-            x = F.relu(conv(F.pad(x, (0, 1, 0, 1))))  # SAME, stride 2
+            x = F.relu(_conv(conv, F.pad(x, (0, 1, 0, 1)), self.compute_dtype))  # SAME, stride 2
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
         for i in range(3):
             x = F.relu(self.fc[i](x))
-            x = _dropout(x, None if masks is None else masks[i], self.dropout_rate)
-        mean, logvar = torch.chunk(self.fc[3](x), 2, dim=-1)
+            x = _dropout(x, _mask(self.fc[i], masks, i), self.dropout_rate)
+        mean, logvar = torch.chunk(self.fc[3](x).float(), 2, dim=-1)
         return mean, _clip_logvar(logvar)
 
 
@@ -167,7 +231,7 @@ class Decoder(nn.Module):
     deconv, 32 a stride-1 one."""
 
     def __init__(self, s_dim: int = 10, colour_channels: int = 1,
-                 resolution: int = 64, dropout_rate: float = 0.5):
+                 resolution: int = 64, dropout_rate: float = 0.5, dtype=torch.float32):
         super().__init__()
         if resolution == 64:
             last_stride = 2
@@ -176,9 +240,11 @@ class Decoder(nn.Module):
         else:
             raise ValueError(f"Unknown resolution {resolution}")
         self.dropout_rate = dropout_rate
+        self.compute_dtype = dtype
+        self.widths = (256, 256, 256, 16 * 16 * 64)  # of the dropout layers, at full width
         self.fc = nn.ModuleList([
-            nn.Linear(s_dim, 256), nn.Linear(256, 256), nn.Linear(256, 256),
-            nn.Linear(256, 16 * 16 * 64),
+            Dense(s_dim, 256, dtype), Dense(256, 256, dtype), Dense(256, 256, dtype),
+            Dense(256, 16 * 16 * 64, dtype),
         ])
         spec = ((64, 64, 1), (64, 64, 2), (64, 32, last_stride),
                 (32, colour_channels, 1))
@@ -188,33 +254,32 @@ class Decoder(nn.Module):
         ])
 
     def draw_masks(self, rows: int, generator: torch.Generator, device) -> List[torch.Tensor]:
-        return _draw_masks(rows, [fc.out_features for fc in self.fc], self.dropout_rate,
-                           generator, device)
+        return _draw_masks(rows, self.widths, self.dropout_rate, generator, device)
 
     def forward(self, s: torch.Tensor, masks: Masks = None):
         x = s
         for i in range(4):
             x = F.relu(self.fc[i](x))
-            x = _dropout(x, None if masks is None else masks[i], self.dropout_rate)
+            x = _dropout(x, _mask(self.fc[i], masks, i), self.dropout_rate)
         x = x.reshape(x.shape[0], 16, 16, 64).permute(0, 3, 1, 2).contiguous()
         for i, layer in enumerate(self.deconv):
             n = x.shape[-1]
-            x = layer(x)
+            x = _deconv(layer, x, self.compute_dtype)
             if layer.stride[0] == 2:
                 x = x[..., : 2 * n, : 2 * n]  # SAME crop of the padding=0 output
             if i < 3:
                 x = F.relu(x)
-        return torch.sigmoid(x)
+        return torch.sigmoid(x.float())
 
 
 class VAE(nn.Module):
     """Encoder + decoder pair."""
 
     def __init__(self, s_dim: int = 10, colour_channels: int = 1,
-                 resolution: int = 64, dropout_rate: float = 0.5):
+                 resolution: int = 64, dropout_rate: float = 0.5, dtype=torch.float32):
         super().__init__()
-        self.encoder = Encoder(s_dim, colour_channels, resolution, dropout_rate)
-        self.decoder = Decoder(s_dim, colour_channels, resolution, dropout_rate)
+        self.encoder = Encoder(s_dim, colour_channels, resolution, dropout_rate, dtype)
+        self.decoder = Decoder(s_dim, colour_channels, resolution, dropout_rate, dtype)
 
     def encode(self, o: torch.Tensor, masks: Masks = None):
         return self.encoder(o, masks)

@@ -260,6 +260,11 @@ def _fused_expand_sim(agent: ActiveInferenceAgent, leaf_s: torch.Tensor, p: MCTS
     qlv_e, qlv_t = q_logvar[:n1], q_logvar[n1:]
 
     def G_terms(po1, ps_logvar, qs_logvar, t21, t22):
+        # Scored in float32 under a bf16 agent too: G sums ~4096 pixel
+        # entropies to O(1e2-1e3) nats, where bf16's ~3 significant digits
+        # would alias nearby actions.
+        po1, ps_logvar, qs_logvar, t21, t22 = (
+            x.to(torch.float32) for x in (po1, ps_logvar, qs_logvar, t21, t22))
         term0 = agent.check_reward(po1)
         term1 = -torch.sum(m.entropy_normal_from_logvar(ps_logvar)
                            + m.entropy_normal_from_logvar(qs_logvar), dim=-1)

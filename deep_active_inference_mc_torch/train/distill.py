@@ -14,7 +14,9 @@ stages:
      visits / sum(visits)]``, the round's ``losses.compute_loss_top`` with
      the sharper target, on the round's own top optimizer.
 
-Only the ``top`` module's weights and its optimizer's state change. Every
+Only the ``top`` module's weights and its optimizer's state change. The
+phase computes in the agent's dtype (``ActiveInferenceAgent(dtype=)``: bf16
+forwards under ``--bf16``; the planner scores G in float32). Every
 draw can be injected (``CollectDraws``, ``DistillDraws``): the env's
 randomize and respawns, the planner's noise, the permutations and the
 encoder's noise.

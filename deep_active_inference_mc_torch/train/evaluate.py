@@ -9,7 +9,8 @@ card: 4 frames batches of ``test_size`` and the probe's 96).
 
 ``jnp.std`` is the population std and ``jnp.median`` of an even count
 averages the two middle values; ``correction=0`` and ``torch.quantile``
-keep both conventions.
+keep both conventions. The forwards compute in the agent's dtype (bf16
+under ``--bf16``); every head, and so every loss and metric, is float32.
 """
 
 from __future__ import annotations

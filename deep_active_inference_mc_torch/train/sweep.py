@@ -28,6 +28,16 @@ macro step ``t`` of a chunk is seeded from that generator's seed and ``t``.
 Everything runs under ``torch.inference_mode()``; ``make_sweep``'s host
 syncs once per chunk (and, under mcts, where the planner reads its done
 flag).
+
+``mesh`` (``parallel/mesh.py``, data ranks only) shards the envs over the
+ranks, the counterpart of ``run_sweep(..., mesh=)``: every rank draws each
+macro step's noise for the global batch (``draw_macro``, in the order the
+unsharded step draws it) and keeps its rows, so ``ai``, ``t1``, ``t12``,
+``habit``, ``random`` and ``expert`` score what the single-rank sweep scores
+at the same seed. The score statistics and tallies are taken over all
+envs (one all-reduce per chunk). ``mcts`` plans each rank's shard with the
+search seeded by the macro step and the rank, so its scores are a sample
+of the same distribution, not the single-rank sweep's.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import dsprites as env_lib
 from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 from deep_active_inference_mc_torch.utils import random as rnd
 from deep_active_inference_mc_torch.utils.device import seeded_generator
@@ -62,6 +73,33 @@ class MacroDraws:
     respawns: torch.Tensor
     rollout: Optional[efe.RolloutDraws] = None
     search: Optional[mcts_lib.SearchDraws] = None
+
+
+def draw_macro(agent, method: str, batch: int, generator: torch.Generator, device,
+               steps: int = 1, samples: int = 1, calc_mean: bool = True, crn: bool = False,
+               jumps: int = 5) -> MacroDraws:
+    """One macro step's noise over ``batch`` envs, drawn in the order the
+    step draws it from ``generator``: the G rollout (ai/t1/t12), the Gumbel
+    noise of the action (all but mcts), the respawns."""
+    rollout = None
+    if method in ("ai", "t1", "t12"):
+        rows = batch if crn else batch * agent.pi_dim
+        rollout = efe.draw_rollout(agent, batch, rows, generator, device, steps, calc_mean,
+                                   samples, mean_estimator=calc_mean)
+    width = 4 if method == "expert" else agent.pi_dim  # the expert acts in env space
+    gumbel = None if method == "mcts" else rnd.gumbel((batch, width), generator, device)
+    respawns = env_lib.sample_latents(generator, (jumps, batch), device)
+    return MacroDraws(gumbel, respawns, rollout)
+
+
+def shard_macro_draws(d: MacroDraws, batch: int, mesh: mesh_lib.Mesh, pi_dim: int,
+                      crn: bool = False) -> MacroDraws:
+    """This data rank's rows of a ``batch``-env macro step's draws."""
+    rows = mesh.data_slice(batch)
+    take = lambda t, inner=1: mesh_lib.take_rows(t, rows, batch, inner)
+    rollout = d.rollout and efe.RolloutDraws(take(d.rollout.eps0),
+                                             take(d.rollout.steps, 1 if crn else pi_dim))
+    return MacroDraws(take(d.gumbel), d.respawns[:, rows], rollout, d.search)
 
 
 def _efe_score(agent, generator, o, method, steps, samples, calc_mean, crn,
@@ -176,6 +214,7 @@ def make_sweep(
     record_traj: bool = False,
     plan_queue: bool = False,
     queue_cap: int = 0,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ):
     """A sweep: ``run(generator, env, qstate=None)`` -> score stats.
 
@@ -211,17 +250,28 @@ def make_sweep(
     @torch.inference_mode()
     def run(generator: Optional[torch.Generator], env: env_lib.EnvState,
             qstate=None, draws: Optional[Sequence[MacroDraws]] = None):
-        """``draws`` (one MacroDraws per macro step) replaces the generator."""
+        """``draws`` (one MacroDraws per macro step) replaces the generator.
+        Under a mesh ``env`` is this rank's shard, and ``draws`` (drawn
+        here unless given) are the global batch's."""
         if zero_score:
             env = env.replace(score=torch.zeros_like(env.score))
         if use_queue and qstate is None:
             qstate = init_qstate(env.batch, env.device)
+        n_total = env.batch * (mesh.n_data if mesh else 1)
         rows = []
         for t in range(n_macro_steps):
             d = None if draws is None else draws[t]
+            if mesh is not None:
+                if d is None:
+                    d = draw_macro(agent, method, n_total, generator, env.device, steps,
+                                   samples, calc_mean, crn, jumps)
+                d = shard_macro_draws(d, n_total, mesh, agent.pi_dim, crn)
             o = render_fn(env)
-            # The planner's seeds: this chunk's seed and the macro step.
+            # The planner's seeds: this chunk's seed and the macro step
+            # (and the rank, under a mesh).
             seed_path = None if generator is None else (generator.initial_seed(), t)
+            if seed_path and mesh is not None and mesh.world > 1:
+                seed_path += (mesh.rank,)
             decision = (agent, generator, o, env, method, steps, samples, temperature,
                         mcts_params, calc_mean, crn, d, seed_path)
             respawns = None if d is None else d.respawns
@@ -242,10 +292,17 @@ def make_sweep(
                 a = _controller_actions(*decision)
                 env, _, tallies = macro_step(generator, env, a, respawns)
             rows.append(tallies)
-        tallies = torch.stack(rows).cpu()  # the chunk's one host sync
+        tallies = torch.stack(rows)
+        scores = env.score
+        if mesh is not None:  # sums over all envs; the fleet-mean score too
+            tallies[:, 5] *= env.batch
+            tallies = mesh.sum_data_(tallies)
+            tallies[:, 5] /= n_total
+            scores = mesh.gather_data(scores)
+        tallies = tallies.cpu()  # the chunk's one host sync
         ev_all, ev_sq, ev_oth, r_sq, r_oth, score_t = tallies.unbind(1)
-        out = _score_stats(env.score)
-        n = env.batch
+        out = _score_stats(scores)
+        n = n_total
         out.update({
             "scoring_events": float(ev_all.sum()),
             "events_sq": float(ev_sq.sum()),
@@ -311,6 +368,7 @@ def run_sweep(
     n_macro_steps: int = 100,
     chunk: int = 50,
     env_chunk: Optional[int] = None,
+    mesh: Optional[mesh_lib.Mesh] = None,
     **kwargs,
 ) -> Dict:
     """Evaluate over ``n_envs`` fresh environments on ``lut``'s device.
@@ -319,7 +377,9 @@ def run_sweep(
     ``env_chunk`` bounds the env-batch width: the full batch is made once
     (so initial states pair with an unchunked run at the same seed), then
     evaluated as independent groups of env_chunk envs; scores are exact
-    per group, only the groups' random streams differ."""
+    per group, only the groups' random streams differ. ``mesh`` shards each
+    group over the data ranks again; ``"scores"`` are then every env's and
+    ``"env"`` this rank's."""
     device = lut.device
     g_env = seeded_generator(device, seed, _ENV_STREAM)
     env = env_lib.randomize(env_lib.reset(g_env, n_envs, device), g_env)
@@ -328,12 +388,16 @@ def run_sweep(
     if n_macro_steps % chunk:
         lengths.append(n_macro_steps % chunk)
     sweeps = {
-        n: make_sweep(agent, cfg, lut, n_macro_steps=n, zero_score=False, **kwargs)
+        n: make_sweep(agent, cfg, lut, n_macro_steps=n, zero_score=False, mesh=mesh, **kwargs)
         for n in set(lengths)
     }
     env = env.replace(score=torch.zeros_like(env.score))
+    local = (lambda e: e) if mesh is None else (lambda e: e.select(mesh.data_slice(e.batch)))
+    if mesh is not None and (env_chunk or n_envs) % mesh.n_data:
+        raise ValueError(f"{env_chunk or n_envs} envs per group not divisible by "
+                         f"{mesh.n_data} data ranks")
     if not env_chunk or env_chunk >= n_envs:
-        return _run_macro_chunks(sweeps, (seed, _RUN_STREAM), env, lengths)
+        return _run_macro_chunks(sweeps, (seed, _RUN_STREAM), local(env), lengths)
     if env_chunk < 0:
         raise ValueError(f"env_chunk={env_chunk} must be positive")
     if n_envs % env_chunk:
@@ -341,7 +405,7 @@ def run_sweep(
     outs = [
         _run_macro_chunks(
             sweeps, (seed, _RUN_STREAM, 10_000 + g),
-            env.select(slice(g * env_chunk, (g + 1) * env_chunk)), lengths,
+            local(env.select(slice(g * env_chunk, (g + 1) * env_chunk))), lengths,
         )
         for g in range(n_envs // env_chunk)
     ]

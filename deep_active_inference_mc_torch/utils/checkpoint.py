@@ -15,7 +15,14 @@ Port of ``deep_active_inference_mc_tpu/utils/checkpoint.py`` with
   - ``archive`` makes an immutable weight-only copy (no optimizer state);
   - ``load_all`` restores everything including the optimizer state, loads
     a weight-only archive onto a template, and refuses a checkpoint whose
-    agent weights do not cover the template's.
+    agent weights do not cover the template's;
+  - under a mesh (``parallel/mesh.py``) a save gathers the full weights,
+    Adam moments and envs from every rank (a collective: every rank calls
+    it) and only the primary rank writes, as the JAX trainer gates its
+    writes. A checkpoint is always the single-rank layout: a mesh run
+    loads it into the full state and shards it after
+    (``mesh.shard_train_state``), so mesh and single-rank runs resume each
+    other's.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from deep_active_inference_mc_torch.envs import dsprites as env_lib
 from deep_active_inference_mc_torch.infer.precision import PrecisionState
+from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.train.loop import TrainState
 
 _SNAPSHOT_SOURCES = ["models/networks.py", "train/losses.py", "train/loop.py"]
@@ -48,13 +56,15 @@ def _to_host(tree):
     return tree
 
 
-def _payload(state: TrainState, generator: torch.Generator) -> Dict[str, Any]:
-    """The host-side checkpoint payload of a train state."""
+def _payload(state: TrainState, generator: torch.Generator,
+             mesh: Optional[mesh_lib.Mesh] = None) -> Dict[str, Any]:
+    """The host-side checkpoint payload of a train state, unsharded."""
+    env = mesh_lib.full_env(state.env, mesh)
     return _to_host({
-        "agent": state.agent.state_dict(),
-        "opt_states": {k: opt.state_dict() for k, opt in state.opts.items()},
+        "agent": mesh_lib.full_state_dict(state.agent, mesh),
+        "opt_states": {k: mesh_lib.full_opt_state(opt, mesh) for k, opt in state.opts.items()},
         "precision": {f: getattr(state.precision, f) for f in ("gamma", "beta_s", "beta_o")},
-        "env": {f: getattr(state.env, f) for f in ("latents", "score", "last_r")},
+        "env": {f: getattr(env, f) for f in ("latents", "score", "last_r")},
         "rng_state": generator.get_state(),
         "rng_device": generator.device.type,
     })
@@ -92,9 +102,13 @@ def _write_payload(folder_chp: Path, payload: Dict, stats: Dict, script_file: st
 
 
 def save_all(folder_chp: Path, state: TrainState, stats: Dict,
-             generator: torch.Generator, script_file: str = "") -> None:
-    """Full checkpoint: state + stats.pkl + source snapshot."""
-    _write_payload(Path(folder_chp).resolve(), _payload(state, generator), stats, script_file)
+             generator: torch.Generator, script_file: str = "",
+             mesh: Optional[mesh_lib.Mesh] = None) -> None:
+    """Full checkpoint: state + stats.pkl + source snapshot (written by
+    the primary rank only)."""
+    payload = _payload(state, generator, mesh)
+    if mesh_lib.is_primary():
+        _write_payload(Path(folder_chp).resolve(), payload, stats, script_file)
 
 
 class AsyncSaver:
@@ -116,15 +130,20 @@ class AsyncSaver:
             self._exc = e
 
     def save(self, folder_chp: Path, state: TrainState, stats: Dict,
-             generator: torch.Generator, script_file: str = "") -> None:
+             generator: torch.Generator, script_file: str = "",
+             mesh: Optional[mesh_lib.Mesh] = None) -> None:
+        """Every rank of a mesh calls this (the gather is a collective);
+        only the primary rank writes."""
         self.wait()
+        payload = _payload(state, generator, mesh)
+        if not mesh_lib.is_primary():
+            return
         # Snapshot the append-only stats lists: the main thread keeps
         # appending while the writer pickles.
         stats_copy = {k: list(v) for k, v in stats.items()}
         self._thread = threading.Thread(
             target=self._run,
-            args=(Path(folder_chp).resolve(), _payload(state, generator), stats_copy,
-                  script_file),
+            args=(Path(folder_chp).resolve(), payload, stats_copy, script_file),
             daemon=True,
         )
         self._thread.start()

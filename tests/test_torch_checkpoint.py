@@ -192,3 +192,30 @@ def test_resume_on_another_device_type_is_refused(tmp_path, trained):
     assert torch.equal(gen2.get_state(), expect)
     assert torch.equal(restored.agent.state_dict()["top.fc.0.weight"],
                        state.agent.state_dict()["top.fc.0.weight"])
+
+
+def test_mesh_checkpoint_resumes_single_rank_and_back(tmp_path):
+    """A 2-rank tensor-parallel run saves the unsharded state (gathered
+    weights and Adam moments); a single-rank run resumes it, and a 2-rank
+    data-parallel run resumes that, the Adam step counts continuing."""
+    from deep_active_inference_mc_torch.apps import train as train_app
+
+    argv = ["--device", "cpu", "--batch", "8", "--rounds", "1", "--test_size", "8",
+            "--sweep_envs", "8", "--sweep_steps", "1", "--viz_every", "1000",
+            "--save_every", "1", "--out_root", str(tmp_path)]
+    first = train_app.main(argv + ["--epochs", "1", "--mesh_shape", "2", "--tp", "2"])
+    assert [r["rank"] for r in first["ranks"]] == [0, 1]
+    assert first["adam_steps"] == {"top": 1, "mid": 1, "down": 1}
+    full = load_state_file(first["folder"] / "checkpoints")
+    assert full["agent"]["mid.fc.0.weight"].shape == (512, 14)  # unsharded
+    assert full["opt_states"]["mid"]["state"][0]["exp_avg"].shape == (512, 14)
+
+    single = train_app.main(argv + ["--epochs", "2", "--resume"])
+    assert single["start_epoch"] == 2
+    assert {k: int(o.state_dict()["state"][0]["step"]) for k, o in
+            single["state"].opts.items()} == {"top": 2, "mid": 2, "down": 2}
+
+    again = train_app.main(argv + ["--epochs", "3", "--resume", "--mesh_shape", "2"])
+    assert again["start_epoch"] == 3 and again["adam_steps"] == {"top": 3, "mid": 3, "down": 3}
+    assert len(again["stats"]["F"]) == 3 and again["stats"]["F"][:2] == single["stats"]["F"]
+    assert all(r["round_launches"] == [0] for r in again["ranks"])  # K1 runs only on a card

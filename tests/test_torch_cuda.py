@@ -197,3 +197,77 @@ def test_mcts_sweep_on_card_renders_once_per_macro(cuda_device, bucketed):
     assert LAUNCHES["render"] == before + 2
     assert out["scores"].is_cuda and bool(torch.isfinite(out["scores"]).all())
     assert out["env"].latents.shape == (32, 6)
+
+
+def _rel_rms(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
+
+
+@pytest.mark.cuda
+def test_bf16_forwards_on_card_match_the_cpu(cuda_device):
+    """bf16 forwards on the card and on the CPU round at different places:
+    each is held to the CPU's float32, the card's error at most twice the
+    CPU's (TF32 off), and every head is float32."""
+    g = torch.Generator().manual_seed(0)
+    cpu32 = ActiveInferenceAgent().init(g)
+    cpu16 = ActiveInferenceAgent(dtype=torch.bfloat16)
+    cpu16.load_state_dict(cpu32.state_dict())
+    card16 = ActiveInferenceAgent(dtype=torch.bfloat16).to(cuda_device)
+    card16.load_state_dict(cpu32.state_dict())
+    lat, last_r = make_latents(64, seed=3)
+    state = tenv.EnvState(torch.from_numpy(lat), torch.zeros(64), torch.from_numpy(last_r))
+    o = tenv.render(traster.build_sprite_lut("cpu"), state)
+    s = torch.randn((64, 10), generator=g)
+    pi = torch.eye(4)[torch.randint(0, 4, (64,), generator=g)]
+
+    def outs(agent, d):
+        with torch.inference_mode():
+            mean, logvar = agent.encode(o.to(d))
+            return {"enc_mean": mean, "enc_logvar": logvar, "decode": agent.decode(s.to(d)),
+                    "transition": agent.transition(pi.to(d), s.to(d))[0],
+                    "habit": agent.habit(s.to(d))[0]}
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want, cpu, card = outs(cpu32, "cpu"), outs(cpu16, "cpu"), outs(card16, cuda_device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    for k in want:
+        assert card[k].dtype == torch.float32 and card[k].is_cuda, k
+        err_card, err_cpu = _rel_rms(card[k], want[k]), _rel_rms(cpu[k], want[k])
+        assert err_card <= 2.0 * err_cpu, (k, err_card, err_cpu)
+
+
+def _collectives(mesh):
+    """Rank body: a gather, a sum and Megatron's f on this rank's card."""
+    from deep_active_inference_mc_torch.parallel import comm
+
+    x = torch.full((2, 3), float(mesh.rank + 1), device=mesh.device)
+    w = torch.ones(3, device=mesh.device, requires_grad=True)
+    comm.copy_to_model(w * (mesh.rank + 1), None).sum().backward()
+    return {"backend": mesh.backend, "device": str(mesh.device),
+            "gather": comm.gather_rows(x), "sum": comm.all_reduce_(x.clone()),
+            "reduced": comm.reduce_from_model(x, None), "grad": w.grad}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [1, 2], ids=["gloo-one-card", "nccl-two-cards"])
+def test_collectives_between_two_ranks_on_cards(cuda_device, cards):
+    """Two ranks sharing one card talk over gloo; on two cards, over NCCL."""
+    from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards")
+    if cards == 1 and torch.cuda.device_count() >= 2:
+        pytest.skip("with two cards the two ranks get one each (NCCL)")
+    ranks = mesh_lib.launch(_collectives, world=2, device="cuda")
+    assert [r["backend"] for r in ranks] == ["gloo" if cards == 1 else "nccl"] * 2
+    assert len({r["device"] for r in ranks}) == cards
+    for rank, r in enumerate(ranks):
+        assert torch.equal(r["gather"], torch.tensor([[1.0] * 3] * 2 + [[2.0] * 3] * 2))
+        assert torch.equal(r["sum"], torch.full((2, 3), 3.0))
+        assert torch.equal(r["reduced"], torch.full((2, 3), 3.0))
+        # f sums the output's gradient (ones) over the 2 ranks: 2 x (rank + 1).
+        assert torch.equal(r["grad"], torch.full((3,), 2.0 * (rank + 1)))

@@ -57,3 +57,19 @@ def test_package_imports_with_jax_blocked():
 def test_package_imports_without_plotting_libraries():
     n = import_all_with(FORBIDDEN + ("matplotlib", "PIL", "sklearn", "seaborn"))
     assert n >= 35  # every app included: distill, demo, train_causal, viz
+
+
+def test_parallel_and_tool_modules_import_with_jax_blocked():
+    """The modules of the multi-device slice by name: the mesh, its
+    collectives, the profiler and the kernel cache."""
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from deep_active_inference_mc_torch.parallel import comm, mesh\n"
+        "from deep_active_inference_mc_torch.utils import compcache, profiling\n"
+        "print(mesh.tp_spec('mid.fc.0.weight', (512, 14), 2))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "0", res.stderr

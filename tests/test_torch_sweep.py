@@ -363,9 +363,9 @@ def test_mcts_cli_prints_its_row(capsys, flags, label):
 def test_mcts_cli_refusals():
     with pytest.raises(SystemExit, match="--mcts_bucketed requires --method mcts"):
         tsweep_app.main(["--device", "cpu", "--method", "ai", "--mcts_bucketed"])
-    for flag in ("--mesh", "--bf16"):  # not in the port's CLI: unknown flags
-        with pytest.raises(SystemExit):
-            tsweep_app.main(MCTS_CLI + [flag])
+    for flags in (["--mesh", "2"], ["--bf16"]):  # both run
+        out = tsweep_app.main(MCTS_CLI + flags)
+        assert out["scores"].shape == (8,) and torch.isfinite(out["scores"]).all()
     assert tsweep.make_sweep(None, Config(), None, method="mcts") is not None
     with pytest.raises(ValueError, match="not in"):
         tsweep.make_sweep(None, Config(), None, method="mctz")

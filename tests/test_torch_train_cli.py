@@ -1,12 +1,13 @@
 """PyTorch port: the trainer CLI (``apps/train.py``) end to end on the CPU
-at a tiny size, its refusals, and its Config parsing against the JAX
-package's."""
+at a tiny size, its multi-device and bf16 flags (gloo between ranks on the
+CPU), its guards, and its Config parsing against the JAX package's."""
 
 import dataclasses
 import json
 import os
 import pickle
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -89,16 +90,78 @@ def test_typoed_flag_errors(tmp_path):
     assert exc.value.code == 2
 
 
-@pytest.mark.parametrize("argv, part", [
-    (["--mesh_shape", "4", "--tp", "2"], "mesh"),
-    (["--mesh_shape", "2"], "mesh"),
-    (["--coordinator", "localhost:1234"], "mesh"),
-    (["--bf16"], "bf16"),
-])
-def test_unported_parts_are_refused_by_name(tmp_path, argv, part):
-    with pytest.raises(NotImplementedError, match=part):
-        train_app.main(TINY + argv + ["--epochs", "1", "--out_root", str(tmp_path)])
-    assert not list(tmp_path.iterdir())  # refused before anything is written
+# One round per epoch: the mesh cases start their ranks as fresh processes.
+ONE_ROUND = ["--rounds", "1", "--sweep_steps", "1", "--test_size", "8", "--epochs", "1"]
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_two_hosts(argv, tmp_path):
+    """The trainer as two hosts of one rank each, meeting at a coordinator
+    on this machine; returns each host's output."""
+    coord = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "deep_active_inference_mc_torch.apps.train", *argv,
+         "--coordinator", coord, "--num_hosts", "2", "--host_id", str(h)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for h in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    return outs
+
+
+@pytest.mark.parametrize("flags, ranks", [
+    (["--mesh_shape", "2"], 2),
+    (["--mesh_shape", "4", "--tp", "2"], 4),
+    (["--coordinator"], 2),
+    (["--bf16"], 1),
+], ids=["mesh_shape-2", "mesh_shape-4-tp-2", "coordinator-2-hosts", "bf16"])
+def test_multi_device_and_bf16_flags_run(tmp_path, capfd, flags, ranks):
+    """Each flag set trains one epoch: one epoch line (the primary's), a
+    checkpoint of the unsharded weights, finite stats."""
+    argv = TINY + ONE_ROUND + ["--save_every", "1", "--out_root", str(tmp_path)]
+    if flags == ["--coordinator"]:
+        outs = run_two_hosts(argv, tmp_path)
+        lines = [[ln for ln in out.splitlines() if ", F: " in ln] for out in outs]
+        assert len(lines[0]) == 1 and lines[1] == [], outs
+        assert "mesh: 2 ranks = data 2 x model 1, backend gloo" in outs[0]
+        chp = next(tmp_path.glob("figs_*")) / "checkpoints"
+        stats = pickle.loads((chp / "stats.pkl").read_bytes())
+    else:
+        out = train_app.main(argv + flags)
+        # capfd: the ranks are processes of their own.
+        lines = [ln for ln in capfd.readouterr().out.splitlines() if ", F: " in ln]
+        assert [ln.split(",")[0] for ln in lines] == ["1"]
+        assert len(out.get("ranks", [out])) == ranks
+        chp, stats = out["folder"] / "checkpoints", out["stats"]
+    assert all(np.isfinite(np.asarray(v, np.float64)).all() for v in stats.values())
+    saved = torch.load(chp / "state" / "state.pt", weights_only=True)
+    assert saved["agent"]["down.decoder.fc.3.weight"].shape == (16 * 16 * 64, 256)
+    assert json.loads((chp.parent / "config.json").read_text())["bf16"] == ("--bf16" in flags)
+
+
+@pytest.mark.parametrize("flags, match", [
+    (["--num_hosts", "2", "--host_id", "0"], "--coordinator"),
+    (["--mesh_shape", "4", "--batch", "6"], "batch 6 not divisible by data-axis size 4"),
+    (["--mesh_shape", "4", "--tp", "3"], "not divisible by tp=3"),
+], ids=["no-coordinator", "batch", "tp"])
+def test_mesh_flag_guards(tmp_path, flags, match):
+    """The JAX trainer's guards, before anything starts or is written."""
+    with pytest.raises(ValueError, match=match):
+        train_app.main(TINY + flags + ["--epochs", "1", "--out_root", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(tmp_path):
