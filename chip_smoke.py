@@ -7,6 +7,9 @@
                                      # training rounds (after phase 4) and of
                                      # two planner iterations (after phase 6)
     python3 chip_smoke.py --profile --trace-dir DIR  # and their chrome traces
+    python3 chip_smoke.py --ladder   # adds the flagship's ladder rows that take
+                                     # minutes each (phase 13); --ladder ROW,ROW
+                                     # adds some of them
 
 Phases (any failure exits non-zero and prints no result):
   1. device: the card's name and power limit; build every CUDA kernel
@@ -98,7 +101,30 @@ Phases (any failure exits non-zero and prints no result):
      two trainer processes meeting at ``--coordinator 127.0.0.1:<port>``
      as hosts 0 and 1. Prints the backend, the ranks, the cards, ms/round
      by rank and K1's launches per rank, which must be 2 per round.
- 13. one JSON line describing every hand-written kernel, the card's
+ 13. the flagship: the committed trained agent
+     (``artifacts/run512/checkpoints``, read through its ``torch_export.npz``)
+     through the CLIs' ``main``s with ``-n`` / ``--resume``. (a) The weights
+     on the card equal the export bit for bit. (b) The habit net's P(up) at
+     the scoring edge sorts squares left and the others right (the
+     contrast contract of tests/test_trained_artifact.py). (c) Ladder rows
+     at the committed protocol (seed 0, 200 macro steps, 5 jumps):
+     ``random``, ``expert`` and ``habit`` at 4096 envs, ``ai`` (2 steps) at
+     1024 envs with TF32 off and with PyTorch's defaults; each within 4
+     sigma (combined) of ``artifacts/run512/eval_log_round5.txt``.
+     ``--ladder`` adds ``ai`` at 4096 envs (TF32 off and on),
+     ``mcts_c2+queue`` at 256 envs and ``mcts_c2_bucketed+queue`` at 512.
+     (d) One plan at the reference budget (300 repeats, fused, float32) at
+     256 envs, plain and bucketed: ``repeats_done`` beside the JAX
+     package's, at least one compaction; then ``--mcts_bucketed
+     --plan_queue --mcts_c 2`` (300 repeats, fused, bf16) at 512 envs, 6
+     macro steps (depth cut from 200), every plan checked. (e) The
+     trainer ``--resume`` from a copy of the store with the run's
+     ``config.json`` flags (batch 512, ``freeze_top``), one epoch of 20
+     rounds: it starts at epoch 1300,
+     fresh Adams, ``top`` bit-unchanged, MSEo within 0.85-1.25 x the run's
+     last 10 epochs' median, K1 twice per round. (f) One distillation
+     iteration (2 decisions) and one headless demo round per controller.
+ 14. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 
@@ -116,6 +142,8 @@ import dataclasses
 import json
 import math
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -857,13 +885,13 @@ def recorded_plans(torch, log: list):
 
 
 def report_plans(torch, tag: str, log: list, envs: int, macro: int, wall: float, launches: dict,
-                 smi: str) -> None:
+                 smi: str, repeats: int = MCTS_REPEATS) -> None:
     reps = torch.cat([r.repeats_done for _, _, r, _ in log]).double()
     capped = sum(int(r.depth_capped.sum()) for _, _, r, _ in log)
     lengths = torch.cat([r.lengths for _, _, r, _ in log]).double()
     plan_s = sum(dt for _, dt, _, _ in log)
     # A plan runs until its slowest env decides (one iteration more, to see it).
-    iters = sum(min(int(r.repeats_done.max()) + 1, MCTS_REPEATS) for _, _, r, _ in log)
+    iters = sum(min(int(r.repeats_done.max()) + 1, repeats) for _, _, r, _ in log)
     rows = sum(B for B, _, _, _ in log)
     print(f"[mcts] {tag}: {envs} envs x {macro} macro, wall {wall:.4f}s, "
           f"{wall / macro * 1e3:.2f} ms/macro, plans/s (envs x macro / wall) "
@@ -1683,6 +1711,290 @@ def phase_mesh(torch, dev, smi: str, f32_ai: dict, out_root: str) -> dict:
     return runs
 
 
+# ------------------------------------------------------------ slice 6
+FLAGSHIP = Path("artifacts") / "run512" / "checkpoints"  # the JAX CLIs' -n, repo-relative
+EXPORT = "torch_export.npz"
+LADDER_LOG = Path("artifacts") / "run512" / "eval_log_round5.txt"
+LADDER_SIGMA = 4.0  # gate: |port - committed| <= 4 sqrt(se_port^2 + se_committed^2)
+LADDER_ENVS_FULL, LADDER_AI_ENVS, LADDER_MACRO_FULL = 4096, 1024, 200  # eval_log_round5.txt
+JAX_TRAINED_EXPANSIONS = 107.29  # BENCH_r05.json mcts_trained_avg_expansions (JAX, TPU v5e)
+FLAGSHIP_PLAN_ENVS = 256
+FLAGSHIP_QUEUE_ENVS, FLAGSHIP_QUEUE_MACRO = 512, 6  # the ladder's best row, depth cut from 200
+EDGE_MAX_WRONG = 0.08  # tests/test_trained_artifact.py's flagship contract
+MSE_BAND = (0.85, 1.25)  # the resumed epoch's MSEo over the run's last 10 epochs' median
+AI_FLAGS = ["--method", "ai", "--steps", "2", "--env_chunk", "1024"]  # scripts/final_eval.sh
+MCTS_LADDER_FLAGS = ["--method", "mcts", "--mcts_repeats", str(REF_BUDGET), "--mcts_fused",
+                     "--bf16", "--plan_queue", "--mcts_c", "2"]
+# Ladder rows, tag: (label in the committed log, envs, the sweep CLI's flags,
+# TF32 off). The default run takes LADDER_ROWS; --ladder adds FULL_LADDER's.
+LADDER_ROWS = {
+    "random": ("random", LADDER_ENVS_FULL, ["--method", "random"], False),
+    "expert": ("expert", LADDER_ENVS_FULL, ["--method", "expert"], False),
+    "habit": ("habit", LADDER_ENVS_FULL, ["--method", "habit"], False),
+    "ai_tf32_off": ("ai", LADDER_AI_ENVS, AI_FLAGS, True),
+    "ai_tf32_defaults": ("ai", LADDER_AI_ENVS, AI_FLAGS, False),
+}
+FULL_LADDER = {
+    "ai_4096_tf32_off": ("ai", LADDER_ENVS_FULL, AI_FLAGS, True),
+    "ai_4096_tf32_defaults": ("ai", LADDER_ENVS_FULL, AI_FLAGS, False),
+    "mcts_c2+queue": ("mcts_c2+queue", MCTS_ENVS, MCTS_LADDER_FLAGS + ["--chunk", "8"], False),
+    "mcts_c2_bucketed+queue": ("mcts_c2_bucketed+queue", LADDER_ENVS,
+                               MCTS_LADDER_FLAGS + ["--mcts_bucketed"], False),
+}
+
+
+def committed_ladder() -> dict:
+    """label -> (mean, sem, envs) of every row of the committed ladder."""
+    rows = {}
+    for line in (ROOT / LADDER_LOG).read_text().splitlines():
+        if line.startswith("method="):
+            f = line.split()
+            score = line.split("score: ")[1].split()
+            rows[f[0][len("method="):]] = (float(score[0]), float(score[2]),
+                                           int(next(x for x in f if x.startswith("envs="))[5:]))
+    return rows
+
+
+def flagship_ladder_rows(torch, smi: str, extra: list) -> dict:
+    """Ladder rows through the sweep CLI on the flagship at the committed
+    protocol (LADDER_ROWS, then the FULL_LADDER rows named in ``extra``),
+    each gated against its committed row. Returns K1's launch counts by
+    row."""
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+
+    committed = committed_ladder()
+    base = ["-n", str(ROOT / FLAGSHIP), "--seed", "0", "--jumps", str(JUMPS),
+            "--macro", str(LADDER_MACRO_FULL)]
+    rows = dict(LADDER_ROWS, **{tag: FULL_LADDER[tag] for tag in extra})
+    runs, misses = {}, []
+    for tag, (label, envs, flags, off) in rows.items():
+        mean_c, sem_c, envs_c = committed[label]
+        log = []
+        LAUNCHES.clear()
+        with (tf32_off(torch) if off else contextlib.nullcontext()), recorded_plans(torch, log):
+            tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            out = sweep_app.main(base + ["--envs", str(envs)] + flags)
+        launches = dict(LAUNCHES)
+        scores = out["scores"]
+        check(bool(torch.isfinite(scores).all()) and tuple(scores.shape) == (envs,),
+              f"ladder {tag}: scores {tuple(scores.shape)} not all finite")
+        # K1 renders once per macro step that planned (mcts), else once per
+        # macro step and env group.
+        groups = -(-envs // int(flags[flags.index("--env_chunk") + 1])) \
+            if "--env_chunk" in flags else 1
+        want = len(log) if flags[1] == "mcts" else LADDER_MACRO_FULL * groups
+        check(launches.get("render", 0) == want,
+              f"ladder {tag}: {launches.get('render', 0)} K1 launches, want {want}")
+        mean, sem = out["score_mean"], out["score_sem"]
+        sigma = abs(mean - mean_c) / math.sqrt(sem ** 2 + sem_c ** 2)
+        if sigma > LADDER_SIGMA:
+            misses.append(tag)
+        plans = ""
+        if log:
+            reps = torch.cat([r.repeats_done for _, _, r, _ in log]).double()
+            iters = sum(min(int(r.repeats_done.max()) + 1, REF_BUDGET) for _, _, r, _ in log)
+            plans = (f", {len(log)} planner calls over {sum(B for B, _, _, _ in log)} rows, "
+                     f"{sum(dt for _, dt, _, _ in log) / iters * 1e3:.2f} ms per planner "
+                     f"iteration, repeats_done mean {reps.mean():.2f}")
+        print(f"[flagship] ladder {tag}: {envs} envs x {LADDER_MACRO_FULL} macro x {JUMPS} jumps "
+              f"(cuBLAS TF32 {tf32[0]}, cuDNN TF32 {tf32[1]}): {mean:+.4f} +- {sem:.4f}, "
+              f"committed {mean_c:+.3f} +- {sem_c:.3f} at {envs_c} envs: {sigma:.2f} sigma "
+              f"(gate {LADDER_SIGMA}); wall {out['wall']:.2f}s, "
+              f"{out['wall'] / LADDER_MACRO_FULL * 1e3:.2f} ms/macro{plans}, launches {launches} "
+              f"[{smi}]", flush=True)
+        runs[f"flagship_ladder_{tag}"] = launches
+    check(not misses, f"ladder rows beyond {LADDER_SIGMA} sigma of the committed ladder: {misses}")
+    return runs
+
+
+def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: str) -> dict:
+    """The committed flagship agent through the port's CLIs, with the
+    FULL_LADDER rows named in ``ladder`` (comma-separated). Returns K1's
+    launch counts by path."""
+    import numpy as np
+
+    from deep_active_inference_mc_torch.apps import demo as demo_app
+    from deep_active_inference_mc_torch.apps import distill as distill_app
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.apps import train as train_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+    from deep_active_inference_mc_torch.train import evaluate
+    from deep_active_inference_mc_torch.utils import convert
+
+    t_phase = time.perf_counter()
+    extra = [tag for tag in ladder.split(",") if tag]
+    unknown = sorted(set(extra) - set(FULL_LADDER))
+    check(not unknown, f"--ladder: no such rows {unknown} (rows: {sorted(FULL_LADDER)})")
+    export = convert.load_export(ROOT / FLAGSHIP / EXPORT)
+    lut = raster.build_sprite_lut(dev)
+    runs = {}
+
+    # (a) the weights on the card are the export's, bit for bit.
+    agent = sweep_app.build_agent(Config(), str(ROOT / FLAGSHIP), dev)
+    sd = agent.state_dict()
+    check(sd.keys() == export["agent"].keys(), "flagship: the agent's keys are not the export's")
+    differ = [k for k, v in export["agent"].items() if not torch.equal(sd[k].cpu(), v)]
+    check(not differ, f"flagship: weights differ from the export: {differ[:5]}")
+    n_params = sum(v.numel() for v in sd.values())
+    print(f"[flagship] {FLAGSHIP}: {n_params} parameters on the card equal {EXPORT}, bit for "
+          f"bit; precision {({k: float(v) for k, v in export['precision'].items()})}", flush=True)
+
+    # (b) the habit net's edge-policy contrast.
+    left, right = evaluate.habit_edge_policy(agent, lut)
+    check(bool(left[0] > 2 * right[0] + 1e-3) and bool(right[0] < EDGE_MAX_WRONG),
+          f"flagship edge policy: squares left {float(left[0]):.4f}, right {float(right[0]):.4f}")
+    for c in (1, 2):
+        check(bool(right[c] > 2 * left[c] + 1e-3) and bool(left[c] < EDGE_MAX_WRONG),
+              f"flagship edge policy: class {c} left {float(left[c]):.4f}, right "
+              f"{float(right[c]):.4f}")
+    print(f"[flagship] habit P(up) at the scoring edge, left / right by class (square, "
+          f"ellipse, heart): {np.round(left.numpy(), 5).tolist()} / "
+          f"{np.round(right.numpy(), 5).tolist()}: the sorting contrast holds (wrong side < "
+          f"{EDGE_MAX_WRONG})", flush=True)
+
+    # (c) ladder rows at the committed protocol.
+    runs.update(flagship_ladder_rows(torch, smi, extra))
+
+    # (d) the trained-prior planner: one plan at the reference budget.
+    g = torch.Generator(device=dev).manual_seed(0)
+    LAUNCHES.clear()
+    with torch.inference_mode():
+        frames = env_lib.render(lut, env_lib.reset(g, FLAGSHIP_PLAN_ENVS, dev))
+    runs["flagship_plan_frames"] = dict(LAUNCHES)
+    p = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
+                            fused_eval=True)
+    bucketed = mcts_lib.make_bucketed_planner(agent, p)
+    for tag, plan in (("plain", lambda: mcts_lib.active_inference_mcts(agent, frames, p, (0,))),
+                      ("bucketed", lambda: bucketed(frames, (0,)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plan()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_plan(torch, f"flagship plan, {tag}", res, p)
+        reps = res.repeats_done.double()
+        trace = ""
+        if tag == "bucketed":
+            check(len(bucketed.bucket_trace) > 1, f"flagship plan: no compaction under the "
+                  f"trained prior (buckets {bucketed.bucket_trace})")
+            trace = f", buckets {bucketed.bucket_trace} at iterations {bucketed.schedule}"
+        print(f"[flagship] plan at the reference budget ({REF_BUDGET} repeats, fused, float32), "
+              f"{tag}: {FLAGSHIP_PLAN_ENVS} envs in {dt:.4f}s, plans/s "
+              f"{FLAGSHIP_PLAN_ENVS / dt:.2f}; repeats_done mean {reps.mean():.2f} (JAX package "
+              f"{JAX_TRAINED_EXPANSIONS}/{REF_BUDGET}, BENCH_r05.json) max {int(reps.max())}, "
+              f"depth_capped {int(res.depth_capped.sum())}{trace} [{smi}]", flush=True)
+
+    # (d) the ladder's best configuration on the trained prior, depth cut.
+    log = []
+    LAUNCHES.clear()
+    with recorded_plans(torch, log):
+        out = sweep_app.main(["-n", str(ROOT / FLAGSHIP), "--seed", "0", "--jumps", str(JUMPS),
+                              "--envs", str(FLAGSHIP_QUEUE_ENVS), "--macro",
+                              str(FLAGSHIP_QUEUE_MACRO), *MCTS_LADDER_FLAGS, "--mcts_bucketed"])
+    launches = dict(LAUNCHES)
+    check(bool(torch.isfinite(out["scores"]).all()), "flagship bucketed queue: scores")
+    check(1 <= len(log) <= FLAGSHIP_QUEUE_MACRO and launches.get("render", 0) == len(log),
+          f"flagship bucketed queue: {launches.get('render', 0)} K1 launches, {len(log)} plans")
+    compactions = sum(len(tr) - 1 for _, _, _, tr in log)
+    check(compactions >= 1, "flagship bucketed queue: no compaction under the trained prior")
+    report_plans(torch, f"flagship bucketed queue C=2 ({REF_BUDGET} repeats, fused, bf16)", log,
+                 FLAGSHIP_QUEUE_ENVS, FLAGSHIP_QUEUE_MACRO, out["wall"], launches, smi, REF_BUDGET)
+    print(f"[flagship] bucketed queue: {compactions} compactions over {len(log)} plans; score "
+          f"{out['score_mean']:+.4f} +- {out['score_sem']:.4f} after {FLAGSHIP_QUEUE_MACRO} "
+          f"macro steps", flush=True)
+    runs["flagship_mcts_bucketed_queue"] = launches
+
+    # (e) the trainer resumes the flagship run with its config.json flags.
+    cfg_run = json.loads((ROOT / FLAGSHIP.parent / "config.json").read_text())
+    default = dataclasses.asdict(Config())
+    # A run folder of its own: phase 4's run has the same signature.
+    cut = {"rounds": TRAIN_ROUNDS, "sweep_steps": TRAIN_SWEEP_STEPS,
+           "out_root": str(Path(out_root) / "flagship")}
+    argv = []
+    for k, v in cfg_run.items():
+        v = cut.get(k, v)
+        if v == default[k] or v is None or k == "epochs":
+            continue
+        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    cfg = Config.from_args(argv)
+    with open(ROOT / FLAGSHIP / "stats.pkl", "rb") as f:
+        history = pickle.load(f)
+    n_done = len(history["F"])
+    shutil.copytree(ROOT / FLAGSHIP, cfg.folder_chp)
+    LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_app.main(argv + ["--resume", "--epochs", str(n_done + 1)])
+    launches = dict(LAUNCHES)
+    check(out["start_epoch"] == n_done + 1, f"flagship resume: started at epoch "
+          f"{out['start_epoch']}, want {n_done + 1}")
+    check_stats(torch, "flagship resume", out["stats"])
+    top = out["state"].agent.top.state_dict()
+    check(all(torch.equal(v.cpu(), export["agent"][f"top.{k}"]) for k, v in top.items()),
+          "flagship resume: top changed under freeze_top")
+    steps = {k: [int(s["step"]) for s in o.state_dict()["state"].values()]
+             for k, o in out["state"].opts.items()}
+    check(steps["top"] == [] and all(set(steps[k]) == {TRAIN_ROUNDS} for k in ("mid", "down")),
+          f"flagship resume: Adam steps {steps}, want fresh Adams at {TRAIN_ROUNDS} (top none)")
+    ref = statistics.median(history["mse_o"][-10:])
+    mse = out["stats"]["mse_o"][-1]
+    check(MSE_BAND[0] * ref <= mse <= MSE_BAND[1] * ref,
+          f"flagship resume: MSEo {mse:.2f} outside {MSE_BAND} x {ref:.2f}")
+    want = 4 * TRAIN_SWEEP_STEPS + 2 * TRAIN_ROUNDS + EVAL_RENDERS
+    check(launches.get("render", 0) == want and out["round_launches"] == [2 * TRAIN_ROUNDS],
+          f"flagship resume: {launches.get('render', 0)} K1 launches, want {want} (2 per round)")
+    sps = out["env_steps_per_s"][0]
+    print(f"[flagship] trainer --resume {' '.join(argv)}: epoch {out['start_epoch']}, "
+          f"{cfg.batch * cfg.repeats / sps * 1e3:.3f} ms/round, MSEo {mse:.3f} (clean "
+          f"{out['stats']['mse_o_clean'][-1]:.3f}) against the run's last 10 epochs' median "
+          f"{ref:.3f}: x{mse / ref:.3f}; top bit-unchanged, Adam steps {({k: max(v, default=0) for k, v in steps.items()})}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; launches {launches} "
+          f"[{smi}]", flush=True)
+    runs["flagship_train_resume"] = launches
+
+    # (f) one distillation iteration and a demo round per controller.
+    log = []
+    LAUNCHES.clear()
+    with recorded_plans(torch, log):
+        res = distill_app.main(["-n", str(ROOT / FLAGSHIP), "-o", str(Path(out_root) / "flagship" / "distilled"),
+                                "--iters", "1", "--distill_macro", "2", "--sweep_envs",
+                                str(TRAIN_SWEEP_ENVS), "--sweep_steps",
+                                str(DISTILL_SWEEP_STEPS)])
+    launches = dict(LAUNCHES)
+    for m in res["metrics"]:
+        check(all(math.isfinite(v) for v in m.values()), f"flagship distill: metrics {m}")
+    check(len(log) == 2 and launches.get("render", 0) >= 2 + 2 * DISTILL_SWEEP_STEPS,
+          f"flagship distill: {len(log)} plans, {launches.get('render', 0)} K1 launches")
+    reps = torch.cat([r.repeats_done for _, _, r, _ in log]).double()
+    print(f"[flagship] distill: 1 iteration of 2 decisions, readouts {res['readouts']}, "
+          f"metrics {({k: round(v, 4) for k, v in res['metrics'][0].items()})}, repeats_done "
+          f"mean {reps.mean():.2f}; launches {launches} [{smi}]", flush=True)
+    runs["flagship_distill"] = launches
+    for method, flags in (("habit", []), ("ai", ["--steps", "7"]),
+                          ("mcts", ["--repeats", str(DEMO_REPEATS), "--depth", "3"])):
+        log = []
+        LAUNCHES.clear()
+        with recorded_plans(torch, log):
+            out = demo_app.main(["-n", str(ROOT / FLAGSHIP), "--method", method, "--headless",
+                                 str(demo_app.DURATION_OF_ROUND), *flags])
+        launches = dict(LAUNCHES)
+        trace = out["trace"]
+        check(bool(torch.isfinite(trace).all()) and out["plans"] >= 1
+              and launches.get("render", 0) == out["plans"],
+              f"flagship demo {method}: {launches.get('render', 0)} K1 launches, "
+              f"{out['plans']} plans")
+        print(f"[flagship] demo {method}: {demo_app.DURATION_OF_ROUND} frames in "
+              f"{out['wall']:.3f}s, {out['fps']:.2f} frames/s, {out['plans']} plans per round, "
+              f"final score {float(trace[-1]):+.3f}; launches {launches} [{smi}]", flush=True)
+        runs[f"flagship_demo_{method}"] = launches
+    print(f"[flagship] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return runs
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
@@ -1691,10 +2003,16 @@ def main() -> None:
                         "the planner phase.")
     parser.add_argument("--trace-dir", default="",
                         help="With --profile: write the chrome traces here.")
+    parser.add_argument("--ladder", nargs="?", const=",".join(FULL_LADDER), default="",
+                        help="Add the flagship's full ladder rows that take minutes each (all, "
+                        "or a comma-separated subset of " + ", ".join(FULL_LADDER) + "), 200 "
+                        "macro steps each.")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (ROOT / PACKAGE).is_dir():
         fail(f"{PACKAGE}/ not found beside chip_smoke.py")
+    if not (ROOT / FLAGSHIP / EXPORT).is_file():
+        fail(f"{FLAGSHIP / EXPORT} not found: the flagship phase needs the committed export")
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -1724,22 +2042,22 @@ def main() -> None:
     k1 = phase_render(torch, dev, bw, smi)
     LAUNCHES.clear()  # the comparison launches above do not count
 
-    # ---- 3. the serving path at full width -------------------------------
-    sweeps = phase_sweep(torch, smi, args)
-    runs = {f"sweep_{method}": r["launches"] for method, r in sweeps.items()}
-
     figures = {}
     with tempfile.TemporaryDirectory() as work, figure_recorders(torch, figures):
-        # ---- 4. the training path at full width --------------------------
+        # ---- 3. the serving path at full width ------------------------------
+        sweeps = phase_sweep(torch, smi, args)
+        runs = {f"sweep_{method}": r["launches"] for method, r in sweeps.items()}
+
+        # ---- 4. the training path at full width -----------------------------
         train_runs, train_folder, f32_ms_round = phase_train(torch, smi, args, work)
         runs.update(train_runs)
 
-        # ---- 5. card against CPU -----------------------------------------
+        # ---- 5. card against CPU --------------------------------------------
         LAUNCHES.clear()
         phase_card_vs_cpu(torch, dev)
         phase_round_card_vs_cpu(torch, dev)
 
-        # ---- 6. the planner path at full width ----------------------------
+        # ---- 6. the planner path at full width ------------------------------
         phase_planner_mechanics(torch, dev)
         runs.update(phase_mcts_sweeps(torch, smi))
         LAUNCHES.clear()
@@ -1748,25 +2066,28 @@ def main() -> None:
         if args.profile:
             profile_planner(torch, dev, args.trace_dir)
 
-        # ---- 8. MCTS-visit distillation ----------------------------------
+        # ---- 8. MCTS-visit distillation -------------------------------------
         distill_runs, distilled = phase_distill(torch, smi, train_folder / "checkpoints",
                                                 work, figures)
         runs.update(distill_runs)
 
-        # ---- 9. the demo ---------------------------------------------------
+        # ---- 9. the demo ----------------------------------------------------
         runs.update(phase_demo(torch, smi, distilled))
 
-        # ---- 10. the causal trainer ----------------------------------------
+        # ---- 10. the causal trainer -----------------------------------------
         runs.update(phase_causal(torch, smi, work, figures))
 
-        # ---- 11. bf16 forwards ---------------------------------------------
+        # ---- 11. bf16 forwards ----------------------------------------------
         runs.update(phase_bf16(torch, dev, smi, sweeps["ai"]["ms_macro"], f32_ms_round,
                                train_folder / "checkpoints", work))
 
-        # ---- 12. multi-device --------------------------------------------
+        # ---- 12. multi-device -----------------------------------------------
         runs.update(phase_mesh(torch, dev, smi, sweeps["ai"], work))
 
-    # ---- 13. result lines ------------------------------------------------
+        # ---- 13. the flagship ------------------------------------------
+        runs.update(phase_flagship(torch, dev, smi, work, figures, args.ladder))
+
+    # ---- 14. result lines ------------------------------------------------
     # K1's row: the launches of the training run (this system's main path)
     # and the times at its batch; the other paths and sizes beside them.
     for path, launches in runs.items():

@@ -28,8 +28,9 @@ action draw of ``habit``/``ai``/``t1``/``t12`` from one uniform of
 (``seed``, tick). ``--headless N`` runs whole rounds through
 ``run_round``, which keeps the plan queue on the device and reads its
 length once per tick; on the same draws it gives the same score trace as
-the host-driven ``tick`` loop. ``-n`` loads a port checkpoint dir (or a
-JAX params ``.npz``); without it the agent is a seeded init. The default
+the host-driven ``tick`` loop. ``-n`` loads a port checkpoint dir, a JAX
+one that holds ``torch_export.npz`` (``artifacts/run512/checkpoints``) or a
+JAX params ``.npz``; without it the agent is a seeded init. The default
 device is ``cuda``; ``--device cpu`` runs on the CPU. matplotlib (the
 window) and PIL (the recordings) are imported where they are used.
 """
@@ -455,7 +456,8 @@ def run_record_ref(demo: Demo, duration: int, path: str):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Interactive demo.")
     parser.add_argument("-n", "--network", type=str, default="",
-                        help="Port checkpoint dir (figs_*/checkpoints) or params .npz.")
+                        help="Port checkpoint dir (figs_*/checkpoints), JAX checkpoint dir "
+                        "with torch_export.npz, or params .npz.")
     parser.add_argument("-m", "--mean", action="store_true")
     parser.add_argument("-d", "--duration", type=int, default=50001)
     parser.add_argument("-method", "--method", type=str, default="mcts",

@@ -12,7 +12,9 @@ iteration prints the phase's metrics and, every ``--sweep_every``
 iterations, the habit sweep's score on the trainer's fixed sweep seed and
 envs (paired across iterations). The best-scoring ``top`` weights are kept
 and restored before the save, which writes a port checkpoint that the
-trainer (``--resume``), the sweep CLI and the demo (``-n``) load.
+trainer (``--resume``), the sweep CLI and the demo (``-n``) load. ``-n``
+takes a port checkpoint dir or a JAX one that holds ``torch_export.npz``
+(``artifacts/run512/checkpoints``).
 
 ``--keep_opt`` keeps the checkpoint's top Adam state; by default it is
 reset, because a long soft-teacher run leaves Adam's second moments large
@@ -47,7 +49,8 @@ from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_g
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("-n", "--network", type=str, required=True,
-                        help="Checkpoint dir to start from.")
+                        help="Checkpoint dir to start from (the port's, or a JAX one "
+                        "with torch_export.npz).")
     parser.add_argument("-o", "--out", type=str, required=True,
                         help="Output checkpoint dir (never the input).")
     parser.add_argument("--iters", type=int, default=20)

@@ -3,16 +3,17 @@
 Scores a controller over thousands of vectorized environments on one card:
 
     python -m deep_active_inference_mc_torch.apps.sweep \
-        -n flagship.npz --method ai --envs 1024 --macro 200
+        -n artifacts/run512/checkpoints --method ai --envs 1024 --macro 200
 
     python -m deep_active_inference_mc_torch.apps.sweep \
         --method mcts --envs 256 --macro 20 --mcts_fused
     python -m deep_active_inference_mc_torch.apps.sweep \
         --method mcts --envs 512 --mcts_bucketed --plan_queue --mcts_c 2
 
-``-n`` takes a ``.npz`` of the JAX agent's params (README: "Weights") or a
-port checkpoint dir (the trainer's or ``apps/distill.py``'s); without it the
-agent is a seeded He-uniform init. Prints one result row in
+``-n`` takes a port checkpoint dir (the trainer's or ``apps/distill.py``'s),
+a JAX checkpoint dir that holds ``torch_export.npz`` (the committed flagship,
+``artifacts/run512/checkpoints``) or a ``.npz`` of the JAX agent's params
+(README: "Weights"); without it the agent is a seeded He-uniform init. Prints one result row in
 the JAX CLI's format. ``--device cpu`` runs on the CPU; the default
 ``cuda`` raises on a machine without a card.
 
@@ -47,9 +48,10 @@ from deep_active_inference_mc_torch.utils.device import resolve_device
 
 def build_agent(cfg: Config, network: str, device: torch.device,
                 dtype=torch.float32) -> ActiveInferenceAgent:
-    """The flagship-width agent computing in ``dtype``: weights from a port
-    checkpoint dir or a params ``.npz`` or, when ``network`` is empty, a
-    seeded init (seed 0, drawn on the CPU)."""
+    """The flagship-width agent computing in ``dtype``: weights from a
+    checkpoint dir (the port's, or a JAX one with its export) or a params
+    ``.npz`` or, when ``network`` is empty, a seeded init (seed 0, drawn on
+    the CPU)."""
     agent = ActiveInferenceAgent(s_dim=cfg.s_dim, pi_dim=cfg.pi_dim,
                                  colour_channels=cfg.colour_channels,
                                  resolution=cfg.resolution, dtype=dtype)
@@ -65,7 +67,8 @@ def build_agent(cfg: Config, network: str, device: torch.device,
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="Batched agent sweep.")
     parser.add_argument("-n", "--network", type=str, default="",
-                        help="Params .npz to load (seeded init if empty).")
+                        help="Checkpoint dir (the port's, or a JAX one with "
+                        "torch_export.npz) or params .npz to load (seeded init if empty).")
     parser.add_argument("--method", type=str, default="ai", choices=sweep_lib.METHODS)
     parser.add_argument("--envs", type=int, default=1024)
     parser.add_argument("--macro", type=int, default=100,

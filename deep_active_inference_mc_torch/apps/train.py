@@ -13,8 +13,13 @@ imagination and reward-imagination strips and the two dashboards into the
 run folder (``viz/``). Checkpoints go to
 ``<out_root>/figs_<signature>/checkpoints`` every ``save_every`` epochs, with
 weight-only archives every ``archive_every``; ``--resume`` continues from the
-newest one, optimizer states and random stream included. SIGINT and SIGTERM
-write a resumable checkpoint and exit with code 130.
+newest one, optimizer states and random stream included. A run folder whose
+``checkpoints/`` is a copy of a JAX checkpoint dir that holds
+``torch_export.npz`` (``artifacts/run512/checkpoints``) resumes from its
+weights, precision and envs at the epoch after its stats, with fresh Adams
+and the seeded random stream, as the JAX trainer resumes its weight-only
+store; a JAX dir without the export raises. SIGINT and SIGTERM write a
+resumable checkpoint and exit with code 130.
 
 The default device is ``cuda``, and a machine without a card raises;
 ``--device cpu`` runs on the CPU. Matmuls and convolutions run with PyTorch's

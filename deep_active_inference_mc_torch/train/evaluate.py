@@ -148,6 +148,35 @@ def edge_probe_frames(cfg: Config, lut: torch.Tensor) -> torch.Tensor:
     return env_lib.render_obs(lut, env, cfg.resolution, cfg.colour_channels)
 
 
+EDGE_POLICY_POSX = (4, 6, 8, 23, 25, 27)  # deep in the left half, then the right
+
+
+@torch.no_grad()
+def habit_edge_policy(agent: ActiveInferenceAgent, lut: torch.Tensor):
+    """The habit net's P(up) at the scoring edge (posY=31) per class
+    (square, ellipse, heart) of a 64x64 grey agent, averaged over the 6
+    scales and three posX deep in each half: ``(left, right)``, each a (3,)
+    float32 tensor on the CPU. A trained agent sorts squares left and the
+    others right, so a square's left P(up) exceeds its right one and the
+    others' the other way round (the contrast contracts of the committed
+    checkpoints)."""
+    device = lut.device
+    SH, SC, PX = torch.meshgrid(torch.arange(3, device=device), torch.arange(6, device=device),
+                                torch.tensor(EDGE_POLICY_POSX, device=device), indexing="ij")
+    lat = torch.stack([
+        torch.zeros_like(SH),  # color
+        SH,  # shape
+        SC,  # scale
+        torch.zeros_like(SH),  # orientation
+        PX,  # posX
+        torch.full_like(SH, 31),  # posY: the scoring edge
+    ], dim=-1).reshape(-1, 6)
+    zeros = torch.zeros((lat.shape[0],), dtype=torch.float32, device=device)
+    o = env_lib.render(lut, env_lib.EnvState(latents=lat, score=zeros, last_r=zeros.clone()))
+    p_up = agent.habitual_net(o).reshape(3, 6, 6, -1)[..., 0].cpu()
+    return p_up[:, :, :3].mean((1, 2)), p_up[:, :, 3:].mean((1, 2))
+
+
 @torch.no_grad()
 def edge_discrimination_probe(agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor,
                               generator: Optional[torch.Generator] = None,

@@ -1,7 +1,10 @@
 """Checkpoint / resume, torch-native.
 
 Port of ``deep_active_inference_mc_tpu/utils/checkpoint.py`` with
-``torch.save`` in Orbax's place. It reads this package's checkpoints only.
+``torch.save`` in Orbax's place. It reads this package's checkpoints, and a
+JAX checkpoint dir that holds ``torch_export.npz`` (the JAX train state
+exported by the README's recipe, read by ``convert.load_export``): the port
+cannot read Orbax, and a JAX dir without the export is refused.
 
   - a full save holds the agent's ``state_dict``, the three optimizers'
     ``state_dict``s, the precision scalars, the env state and the training
@@ -15,7 +18,10 @@ Port of ``deep_active_inference_mc_tpu/utils/checkpoint.py`` with
   - ``archive`` makes an immutable weight-only copy (no optimizer state);
   - ``load_all`` restores everything including the optimizer state, loads
     a weight-only archive onto a template, and refuses a checkpoint whose
-    agent weights do not cover the template's;
+    agent weights do not cover the template's. A JAX dir's export is a
+    weight-only archive (the Orbax store holds no optimizer state): its
+    weights, precision and envs are loaded, the optimizers and the
+    generator stay as they are;
   - under a mesh (``parallel/mesh.py``) a save gathers the full weights,
     Adam moments and envs from every rank (a collective: every rank calls
     it) and only the primary rank writes, as the JAX trainer gates its
@@ -39,9 +45,11 @@ from deep_active_inference_mc_torch.envs import dsprites as env_lib
 from deep_active_inference_mc_torch.infer.precision import PrecisionState
 from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.train.loop import TrainState
+from deep_active_inference_mc_torch.utils import convert
 
 _SNAPSHOT_SOURCES = ["models/networks.py", "train/losses.py", "train/loop.py"]
 _STATE_FILE = "state.pt"
+EXPORT_FILE = "torch_export.npz"
 
 
 def _to_host(tree):
@@ -172,44 +180,76 @@ def _resolve_state_dir(folder_chp: Path) -> Path:
     return state
 
 
+def _source(folder_chp: Path) -> Path:
+    """The file a checkpoint dir is read from: a port checkpoint's
+    ``state.pt``, else a JAX checkpoint's ``torch_export.npz`` (a port save
+    into such a dir takes precedence over the export). The returned path
+    need not exist; a JAX dir without its export raises."""
+    folder_chp = Path(folder_chp)
+    state_dir = _resolve_state_dir(folder_chp)
+    export = folder_chp / EXPORT_FILE
+    orbax = (state_dir / "_METADATA").exists()
+    if (state_dir / _STATE_FILE).exists() or not (orbax or export.exists()):
+        return state_dir / _STATE_FILE
+    if not export.exists():
+        raise FileNotFoundError(
+            f"{folder_chp} is a JAX (Orbax) checkpoint without {EXPORT_FILE}: the port cannot "
+            f"read Orbax. Write {export} with the JAX package by the README's recipe "
+            f"(\"Weights\").")
+    return export
+
+
+def _read(folder_chp: Path) -> Tuple[Path, Dict[str, Any]]:
+    """(source, payload) of a checkpoint dir; a JAX export reads as a
+    weight-only payload (no optimizer or generator state)."""
+    src = _source(Path(folder_chp).resolve())
+    if src.name == EXPORT_FILE:
+        return src, convert.load_export(src)
+    # Read onto the CPU: ``load_state_dict`` moves weights and moments to
+    # their params' device and leaves Adam's step counters on the CPU,
+    # where a fresh optimizer keeps them (on the card they would cost a
+    # host sync per parameter per step).
+    return src, torch.load(src, map_location="cpu", weights_only=True)
+
+
 def load_all(folder_chp: Path, state: TrainState, generator: torch.Generator
              ) -> Tuple[TrainState, Dict]:
     """Restore a checkpoint into ``state`` (a freshly created TrainState:
     its agent and optimizers are loaded in place) and ``generator``, and
     return (state, stats).
 
-    A weight-only archive (``archive`` drops the optimizer state) leaves the
-    optimizers and ``generator`` as they are, so sweeps and probes can
-    evaluate archived epochs directly. A full checkpoint continues the saved
-    run's random stream, and is refused when ``generator`` is of another
-    device type than the one that saved it. A checkpoint that lacks any of
-    the agent's weights is refused: falling back to the template's values
-    would silently evaluate a random-init subtree."""
+    A weight-only archive (``archive`` drops the optimizer state, and a JAX
+    dir's export has none) leaves the optimizers and ``generator`` as they
+    are, so sweeps and probes can evaluate archived epochs directly and a
+    run resumed from one starts with fresh Adams. Its envs are loaded when
+    they are as many as the template's, else the template's stay (a run at
+    another batch). A full checkpoint continues the saved run's random
+    stream, and is refused when ``generator`` is of another device type
+    than the one that saved it. A checkpoint that lacks any of the agent's
+    weights is refused: falling back to the template's values would
+    silently evaluate a random-init subtree."""
     folder_chp = Path(folder_chp).resolve()
-    state_dir = _resolve_state_dir(folder_chp)
+    src, payload = _read(folder_chp)
     device = state.env.device
-    # Read onto the CPU: ``load_state_dict`` moves weights and moments to
-    # their params' device and leaves Adam's step counters on the CPU,
-    # where a fresh optimizer keeps them (on the card they would cost a
-    # host sync per parameter per step).
-    payload = torch.load(state_dir / _STATE_FILE, map_location="cpu", weights_only=True)
 
     missing = sorted(set(state.agent.state_dict()) - set(payload["agent"]))
     if missing:
         raise ValueError(
-            f"checkpoint at {state_dir} does not cover the agent's params: missing "
+            f"checkpoint at {src} does not cover the agent's params: missing "
             f"{missing[:5]} (+{max(0, len(missing) - 5)} more)")
     resumable = "opt_states" in payload
     if resumable and payload["rng_device"] != generator.device.type:
         raise ValueError(
-            f"checkpoint at {state_dir} was saved by a run on {payload['rng_device']}: its "
+            f"checkpoint at {src} was saved by a run on {payload['rng_device']}: its "
             f"random stream cannot continue on {generator.device.type}")
     state.agent.load_state_dict(payload["agent"])
     for k, sd in payload.get("opt_states", {}).items():
         state.opts[k].load_state_dict(sd)
     state.precision = PrecisionState(**{k: v.to(device) for k, v in payload["precision"].items()})
-    state.env = env_lib.EnvState(**{k: v.to(device) for k, v in payload["env"].items()})
-    if resumable:  # a weight-only archive is evaluated, not trained on
+    env = env_lib.EnvState(**{k: v.to(device) for k, v in payload["env"].items()})
+    if resumable or env.batch == state.env.batch:
+        state.env = env
+    if resumable:  # a weight-only archive leaves the caller's stream as it is
         generator.set_state(payload["rng_state"])
     with open(folder_chp / "stats.pkl", "rb") as f:
         stats = pickle.load(f)
@@ -217,11 +257,10 @@ def load_all(folder_chp: Path, state: TrainState, generator: torch.Generator
 
 
 def load_weights(folder_chp: Path, module: torch.nn.Module) -> torch.nn.Module:
-    """Load only the model weights of a checkpoint (full or archive) into
-    ``module``: what a sweep or the demo needs, on any device."""
-    state_dir = _resolve_state_dir(Path(folder_chp).resolve())
-    payload = torch.load(state_dir / _STATE_FILE, map_location="cpu", weights_only=True)
-    module.load_state_dict(payload["agent"])
+    """Load only the model weights of a checkpoint (full, archive or a JAX
+    dir's export) into ``module``: what a sweep or the demo needs, on any
+    device."""
+    module.load_state_dict(_read(folder_chp)[1]["agent"])
     return module
 
 
@@ -246,5 +285,7 @@ def archive(folder_chp: Path, epoch: int) -> None:
 
 
 def latest_exists(folder_chp: Path) -> bool:
-    return (_resolve_state_dir(folder_chp) / _STATE_FILE).exists() and (
-        Path(folder_chp) / "stats.pkl").exists()
+    """Whether ``folder_chp`` holds a checkpoint to resume (a JAX dir
+    without its export raises rather than answering no: a resume must not
+    start from a seeded init)."""
+    return _source(folder_chp).exists() and (Path(folder_chp) / "stats.pkl").exists()

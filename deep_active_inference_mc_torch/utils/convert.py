@@ -24,8 +24,11 @@ layer by layer against Flax in tests/test_torch_causal.py (float32, CPU):
     flipped: max abs error <= 9.5e-7 (unflipped it is off by 2.8-5.0).
 
 ``load_npz`` reads a flat ``.npz`` keyed by the tree path
-(``"down/decoder/Dense_3/kernel"``, ...); the README shows how to write one
-from a JAX checkpoint.
+(``"down/decoder/Dense_3/kernel"``, ...). ``load_export`` reads the export
+of a whole JAX train state that a JAX checkpoint dir may hold
+(``torch_export.npz``: ``params/<tree path>``, ``precision/<scalar>``,
+``env/<field>``, float32 and int32 as stored); the README shows the code
+that writes it.
 """
 
 from __future__ import annotations
@@ -97,8 +100,8 @@ def causal_params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_npz(path) -> Dict[str, torch.Tensor]:
-    """State_dict from a flat ``.npz`` of the Flax params tree."""
+def _unflatten(path) -> dict:
+    """The nested dict of a flat ``.npz`` keyed by ``/``-joined paths."""
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -107,4 +110,27 @@ def load_npz(path) -> Dict[str, torch.Tensor]:
             for p in parents:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
-    return params_from_jax(tree)
+    return tree
+
+
+def load_npz(path) -> Dict[str, torch.Tensor]:
+    """State_dict from a flat ``.npz`` of the Flax params tree."""
+    return params_from_jax(_unflatten(path))
+
+
+def load_export(path) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX train-state export as ``{"agent": state_dict, "precision":
+    {gamma, beta_s, beta_o}, "env": {latents, score, last_r}}`` of CPU
+    tensors: the agent through ``params_from_jax``, the rest as stored
+    (0-d float32 scalars, float32 score and last reward), but the latents
+    in the port's int64."""
+    tree = _unflatten(path)
+    missing = sorted({"params", "precision", "env"} - set(tree))
+    if missing:
+        raise ValueError(f"{path} is not a train-state export: no {missing} entries")
+    return {
+        "agent": params_from_jax(tree["params"]),
+        "precision": {k: torch.from_numpy(np.asarray(v)) for k, v in tree["precision"].items()},
+        "env": {k: torch.from_numpy(np.asarray(v, np.int64 if k == "latents" else None))
+                for k, v in tree["env"].items()},
+    }

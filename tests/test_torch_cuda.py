@@ -271,3 +271,23 @@ def test_collectives_between_two_ranks_on_cards(cuda_device, cards):
         assert torch.equal(r["reduced"], torch.full((2, 3), 3.0))
         # f sums the output's gradient (ones) over the 2 ranks: 2 x (rank + 1).
         assert torch.equal(r["grad"], torch.full((3,), 2.0 * (rank + 1)))
+
+
+@pytest.mark.cuda
+def test_flagship_export_on_the_card(cuda_device):
+    """The committed flagship through ``-n``'s loader on the card: the
+    weights equal the export bit for bit, and the habit net's edge policy
+    sorts squares left and the others right."""
+    from pathlib import Path
+
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.train import evaluate
+    from deep_active_inference_mc_torch.utils import convert
+
+    flagship = Path(__file__).resolve().parent.parent / "artifacts" / "run512" / "checkpoints"
+    agent = sweep_app.build_agent(Config(), str(flagship), cuda_device)
+    want = convert.load_export(flagship / ckpt.EXPORT_FILE)["agent"]
+    assert all(torch.equal(v.cpu(), want[k]) for k, v in agent.state_dict().items())
+    left, right = evaluate.habit_edge_policy(agent, traster.build_sprite_lut(cuda_device))
+    assert left[0] > 2 * right[0] + 1e-3 and right[0] < 0.08
+    assert all(right[c] > 2 * left[c] + 1e-3 and left[c] < 0.08 for c in (1, 2))

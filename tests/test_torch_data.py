@@ -81,12 +81,12 @@ def assert_same_env(te, je):
 def generator_draws(ja, jp, cfg, key, B):
     """GeneratorDraws of ``make_batch_active_inference(key)`` (data.py:64)."""
     k_rand, k_G, k_act, k_step = jax.random.split(key, 4)
-    rows = B if cfg.crn else B * 4
+    rows = B if cfg.crn else B * cfg.pi_dim
     return tdata.GeneratorDraws(
         env=env_draws(k_rand, B),
         edge=edge_draws(k_rand, B) if cfg.edge_frac > 0 else None,
         rollout=jax_rollout_draws(ja, jp, k_G, rows, cfg.deepness, sampled=not cfg.gen_mean),
-        gumbel=t(jax.random.gumbel(k_act, (B, 4))),
+        gumbel=t(jax.random.gumbel(k_act, (B, cfg.pi_dim))),
         respawns=respawn_draws(k_step, B, cfg.repeats),
     )
 

@@ -273,7 +273,8 @@ def jax_habit_rollout_draws(ja, jp, k_scan, rows, depth):
     steps = []
     for k in jax.random.split(k_scan, depth):
         k_pi, k_trans = jax.random.split(k)
-        steps.append((t(jax.random.gumbel(k_pi, (rows, 4))), jax_mid_draws(ja, jp, k_trans, rows)))
+        steps.append((t(jax.random.gumbel(k_pi, (rows, ja.pi_dim))),
+                      jax_mid_draws(ja, jp, k_trans, rows)))
     return tefe.HabitRolloutDraws(torch.stack([g for g, _ in steps]),
                                   [d.masks for _, d in steps],
                                   torch.stack([d.eps for _, d in steps]))

@@ -25,7 +25,7 @@ from test_torch_efe import G_TOL
 from test_torch_losses import (LOSS_TOL, jax_down_draws, jax_mid_draws, jax_normal,
                                jax_rollout_draws, t)
 from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
-from test_torch_models import jax_flagship, torch_agent
+from test_torch_models import VARIANTS, jax_flagship, seeded_variant, torch_agent
 
 TEST_SIZE = 16  # even, so the median averages the two middle values
 
@@ -120,9 +120,10 @@ def jax_eval_draws(ja, jp, key, cfg):
     k_penv, k_pstep = jax.random.split(k_pb)
     k_enc, k_trans = jax.random.split(k_im)
     trans = jax_mid_draws(ja, jp, k_trans, n)
+    A = cfg.pi_dim
     return teval.EvalDraws(
-        batch=tdata.RandomDraws(env_draws(k_rand, n), t(jax.random.uniform(k_ppi, (n, 4))),
-                                t(jax.random.gumbel(k_act, (n, 4))),
+        batch=tdata.RandomDraws(env_draws(k_rand, n), t(jax.random.uniform(k_ppi, (n, A))),
+                                t(jax.random.gumbel(k_act, (n, A))),
                                 respawn_draws(k_step, n, cfg.repeats)),
         staged=teval.losses.StagedDraws(
             eps_s0=jax_normal(jax.random.split(k_s0)[1], n),
@@ -130,29 +131,40 @@ def jax_eval_draws(ja, jp, key, cfg):
         probe=teval.ProbeDraws(env_draws(k_penv, n), respawn_draws(k_pstep, n, cfg.repeats),
                                jax_normal(jax.random.split(k_enc)[1], n), trans.masks,
                                trans.eps),
-        edge=jax_rollout_draws(ja, jp, k_edge, 96 * 4, 1, sampled=False))
+        edge=jax_rollout_draws(ja, jp, k_edge, 96 * A, 1, sampled=False))
 
 
-def test_eval_pass_frames_match_jax(flagship, luts):
+@pytest.mark.parametrize("variant", ["flagship", *VARIANTS])
+def test_eval_pass_frames_match_jax(flagship, luts, variant):
     """The frames the figures draw: the eval batch's first 7 o0, o1 and
     decoded o1, and the reward probe's real and imagined frames, against
     ``make_jit_eval``'s under the same noise (sprite frames bit for bit,
     decoded ones to 1e-4); and the reward probe's two errors, which read
-    those frames, to the loss tolerance."""
-    ja, jp, ta = flagship
+    those frames, to the loss tolerance. On the flagship, and on a seeded
+    init in each variant configuration, where every scalar of the pass is
+    held too (losses to the loss tolerance, G-derived numbers to G's)."""
+    dims = VARIANTS.get(variant, {})
+    ja, jp, ta = seeded_variant(**dims) if dims else flagship
     jlut, tlut = luts
-    jcfg, tcfg = jconfig.Config(test_size=TEST_SIZE), tconfig.Config(test_size=TEST_SIZE)
+    jcfg = jconfig.Config(test_size=TEST_SIZE, **dims)
+    tcfg = tconfig.Config(test_size=TEST_SIZE, **dims)
     key = jax.random.key(33)
     want = jeval.make_jit_eval(ja, jcfg, jlut)(jp, jprecision.PrecisionState.create(), key)
     got = teval.make_eval(ta, tcfg, tlut)(tprecision.PrecisionState.create(),
                                           draws=jax_eval_draws(ja, jp, key, tcfg))
+    shape = (teval.N_PLOT, tcfg.colour_channels, tcfg.resolution, tcfg.resolution)
     for k in ("o0", "o1", "o0_probe", "o1_probe"):
-        assert got[k].shape == (teval.N_PLOT, 1, 64, 64), k
+        assert got[k].shape == shape, k
         np.testing.assert_array_equal(nhwc(got[k]), np.asarray(want[k]), err_msg=k)
     for k in ("po1", "po1_probe"):
-        assert got[k].shape == (teval.N_PLOT, 1, 64, 64), k
+        assert got[k].shape == shape, k
         np.testing.assert_allclose(nhwc(got[k]), np.asarray(want[k]), rtol=1e-4, atol=1e-4,
                                    err_msg=k)
     for k in ("mse_r", "deep_mse_o"):
         np.testing.assert_allclose(float(got[k]), float(want[k]), err_msg=k, **LOSS_TOL)
     assert set(want) <= set(got)
+    if dims:
+        for k, w in want.items():
+            if np.ndim(w) == 0:
+                tol = G_TOL if k.startswith("edge_g") else LOSS_TOL
+                np.testing.assert_allclose(float(got[k]), float(w), err_msg=k, **tol)

@@ -35,7 +35,7 @@ from test_torch_data import FLAGSHIP_GEN, generator_draws, tstate
 from test_torch_losses import (flax_vae_masks, jax_down_draws, jax_mid_draws, jax_normal,
                                loss_inputs, t)
 from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
-from test_torch_models import jax_flagship, nchw, torch_agent
+from test_torch_models import VARIANTS, jax_flagship, nchw, seeded_variant, torch_agent
 
 B = 8
 
@@ -91,12 +91,13 @@ def floats(metrics):
 
 # --------------------------------------------------- the slice as a whole
 @pytest.mark.parametrize("flags", [{}, dict(clip_grad=50.0, **FLAGSHIP_GEN),
-                                   dict(vae_train_dropout=1)],
-                         ids=["defaults", "flagship-flags-clipped", "vae-dropout"])
+                                   dict(vae_train_dropout=1), *VARIANTS.values()],
+                         ids=["defaults", "flagship-flags-clipped", "vae-dropout", *VARIANTS])
 def test_two_rounds_match_jax_train_round(flagship, luts, flags):
-    """Two consecutive rounds from the converted flagship: the second round's
-    metrics depend on the first round's three Adam updates."""
-    ja, jp, ta = flagship
+    """Two consecutive rounds from the converted flagship (a seeded init in
+    the variant configurations): the second round's metrics depend on the
+    first round's three Adam updates."""
+    ja, jp, ta = seeded_variant(**flags) if flags in VARIANTS.values() else flagship
     jlut, tlut = luts
     jcfg, tcfg = jconfig.Config(batch=B, **flags), tconfig.Config(batch=B, **flags)
     jstep = jax.jit(jloop.make_round_fn(ja, jcfg, jlut))

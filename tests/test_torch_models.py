@@ -55,6 +55,21 @@ def jax_flagship():
     return agent, state.params
 
 
+# The JAX package's variant configurations (tests/test_variants.py): the
+# Animal-AI action set at 32x32, 32x32 colour frames, and the action set at
+# 64x64. The flagship's widths do not fit them, so they run on a seeded init.
+VARIANTS = {"pi3-res32": dict(pi_dim=3, resolution=32),
+            "res32-rgb": dict(resolution=32, colour_channels=3),
+            "pi3": dict(pi_dim=3)}
+
+
+def seeded_variant(seed=0, **dims):
+    """(JAX agent, its seeded params, the converted port agent) at ``dims``."""
+    ja = JAgent(**dims)
+    jp = jax.jit(ja.init)(jax.random.key(seed))
+    return ja, jp, torch_agent(jp, **dims)
+
+
 def torch_agent(jparams, **kw):
     agent = TAgent(**kw)
     agent.load_state_dict(convert.params_from_jax(jax.tree.map(np.asarray, jparams)))
@@ -237,8 +252,9 @@ def test_seeded_init_bounds_zero_biases_and_counts(seeded):
 
 
 def test_load_npz_reads_the_readme_export(flagship, tmp_path):
-    """The README's JAX-side export (a flat .npz keyed by tree path) loads
-    into the same state_dict as ``params_from_jax``."""
+    """The README's params-only export (a flat .npz keyed by tree path, the
+    export's ``params/`` entries without the prefix) loads into the same
+    state_dict as ``params_from_jax``."""
     _, jp, ta = flagship
     path = tmp_path / "flagship.npz"
     np.savez(path, **{"/".join(k.key for k in p): np.asarray(v)

@@ -27,7 +27,7 @@ from deep_active_inference_mc_torch.train import sweep as tsweep
 from deep_active_inference_mc_torch.utils.device import seeded_generator
 from test_torch_efe import G_TOL, draws, oracle_G_mean, to_torch
 from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
-from test_torch_models import jax_flagship, torch_agent
+from test_torch_models import VARIANTS, jax_flagship, seeded_variant, torch_agent
 
 JUMPS = 5
 _render = jax.jit(jenv.render)
@@ -60,7 +60,7 @@ def jax_step(key, state, logits, gumbel):
     """Sample by Gumbel-max with the injected noise (jax.random.categorical's
     construction), then step with action-repeat; returns the step's
     respawns as the port takes them."""
-    a = jenv.to_env_actions(jnp.argmax(logits + gumbel, axis=-1), 4)
+    a = jenv.to_env_actions(jnp.argmax(logits + gumbel, axis=-1), logits.shape[-1])
     state, scored = _step_repeated(key, state, a, repeats=JUMPS)
     B = state.batch
     respawns = np.stack([np.asarray(jenv.sample_latents(k, B))
@@ -131,29 +131,36 @@ def test_score_traj_spans_chunks_and_env_groups(env_chunk):
     np.testing.assert_allclose(out["score_traj"][-1], out["score_mean"], rtol=1e-5, atol=1e-7)
 
 
-def test_ai_macro_step_matches_jax_replay(flagship, luts):
-    ja, jp, ta = flagship
+@pytest.mark.parametrize("variant", ["flagship", *VARIANTS])
+def test_ai_macro_step_matches_jax_replay(flagship, luts, variant):
+    """One ai macro step against the JAX package's functions: on the
+    flagship, and on a seeded init in each variant configuration (the
+    frames at its resolution and channels, G over its actions, the env
+    actions of its action set)."""
+    dims = VARIANTS.get(variant, {})
+    ja, jp, ta = seeded_variant(**dims) if dims else flagship
+    cfg = Config(**dims)
     jlut, tlut = luts
-    B, A = 16, 4
+    B, A = 16, cfg.pi_dim
     tstate, jstate = start(B, seed=3)
     gumbel = np.random.default_rng(4).gumbel(size=(B, A)).astype(np.float32)
     d = draws(B * A, seed=5, sampled=False)
     rollout = tefe.RolloutDraws(None, [to_torch(d)])
 
-    jo = jenv.render(jlut, jstate)
+    jo = jenv.render_obs(jlut, jstate, cfg.resolution, cfg.colour_channels)
     s, _ = ja.encode(jp, jo)
     G_o, _, _ = oracle_G_mean(ja, jp, jnp.repeat(s, A, axis=0),
                               jnp.tile(jnp.eye(A), (B, 1)), *d[:3])
     G_o = G_o.reshape(B, A)
     with torch.inference_mode():
-        o = tenv.render(tlut, tstate)
-        np.testing.assert_array_equal(o.numpy().reshape(jo.shape), np.asarray(jo))
+        o = tenv.render_obs(tlut, tstate, cfg.resolution, cfg.colour_channels)
+        np.testing.assert_array_equal(o.permute(0, 2, 3, 1).numpy(), np.asarray(jo))
         G, _, _ = tefe.calculate_G_4_repeated(ta, o, steps=1, calc_mean=True,
                                               samples=1, draws=rollout)
     np.testing.assert_allclose(G.numpy(), np.asarray(G_o), **G_TOL)
 
     jstate, scored, respawns = jax_step(jax.random.key(6), jstate, -G_o / 1.0, gumbel)
-    run = tsweep.make_sweep(ta, Config(), tlut, method="ai", n_macro_steps=1, jumps=JUMPS,
+    run = tsweep.make_sweep(ta, cfg, tlut, method="ai", n_macro_steps=1, jumps=JUMPS,
                             steps=1, samples=1, temperature=1.0, calc_mean=True)
     out = run(None, tstate, draws=[tsweep.MacroDraws(torch.from_numpy(gumbel), respawns,
                                                      rollout)])
