@@ -18,15 +18,18 @@ Phases (any failure exits non-zero and prints no result):
      bit (tolerance 0) at every batch the paths give it (256 and 512
      planner sweeps, 512 training rounds and sweeps, 1000 eval frames, 1024
      sweep envs, 2048 distillation replay rows, and the edge probe's own
-     96 latents with no reward shown) and at 1, 33 and 4096; at
-     1 (the floor of the timing method and the demo's batch), 256, 512,
-     1024, 2048 and 4096 the
-     device time of one call of each (median of 100 calls queued behind a
-     sleep kernel, after a discarded pass of the same and a burst of work
-     that raises the clocks, CUDA events around each call, L2 evicted
-     before each call as the network passes evict it on the main path;
-     K1's times with a warm L2 and with a dirty one beside them, and its
-     time per call of 100 back to back inside one pair of events) and
+     96 latents with no reward shown), at 1, 33 and 4096, and on latents
+     off the grid at 1000 and 4096. torch.profiler shows that one
+     ``envs.dsprites.render`` is one device kernel (the first design's
+     route beside it). At 1 (the demo's batch), 256, 512, 1024, 2048 and
+     4096: K1's device time per call with a clean L2 and no events around
+     any call (100 x (L2 flush, K1) between one pair of events, less 100
+     flushes alone, over 100; the flush reads 128 MB; in turns with K1's
+     first design, that design's route (its index math as separate
+     launches, then its kernel), the plain version and a same-bytes
+     ``copy_`` of the frames, each run paired with a flush run, 3 rounds of
+     two), beside K1's time between its own events per call (the method of
+     earlier runs) and back to back with a warm L2, and
      K1's bound from the bytes this data needs.
   3. the serving path at full width: the sweep CLI's ``main`` with the
      ``ai`` controller (mean G, 1 step, 1 sample, 5 jumps) at 1024 envs for
@@ -158,6 +161,7 @@ SWEEP_ENVS = 1024
 SWEEP_MACRO = 20
 JUMPS = 5
 TIMING_REPS = 100
+CLEAN_L2_ROUNDS = 3  # each timed in turns twice per round
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at Hopper's clocks: covers the host's enqueue
 L2_FLUSH_BYTES = 128 << 20  # > the 50 MB L2
 CARD_VS_CPU_ENVS = 8
@@ -221,12 +225,13 @@ def hbm_bytes_per_s(name: str) -> float:
 
 
 def time_ms(torch, fn, flush=None, reps: int = TIMING_REPS) -> tuple:
-    """(25th, 50th, 75th) percentile device time of one call of ``fn``.
-    All calls are enqueued while a sleep kernel holds the card, so no call
-    waits on the host; each call sits between its own pair of CUDA
-    events, with ``flush`` (if given) run before it, outside the events.
-    Two such passes run and the first is discarded: its window was seen
-    to be disturbed (wide quartiles) while the second's is not."""
+    """(25th, 50th, 75th) percentile device time of one call of ``fn``, each
+    call between its own pair of CUDA events (the method of earlier runs,
+    kept so that their numbers stay comparable). All calls are enqueued
+    while a sleep kernel holds the card, so no call waits on the host;
+    ``flush`` (if given) runs before each call, outside the events. Two
+    such passes run and the first is discarded: its window was seen to be
+    disturbed (wide quartiles) while the second's is not."""
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
     for _ in range(2):
@@ -243,24 +248,48 @@ def time_ms(torch, fn, flush=None, reps: int = TIMING_REPS) -> tuple:
     return q1, q2, q3
 
 
-def time_back_to_back_ms(torch, fn, reps: int = TIMING_REPS, passes: int = 5) -> float:
-    """Device time per call of ``reps`` calls of ``fn`` between ONE pair of
-    events (queued behind a sleep kernel; median of ``passes`` such runs
-    after a discarded one): what a call costs with no event on either side
-    of it, the L2 warm. Beside ``time_ms`` without a flush it shows how much
-    of a per-call time is the events' own."""
+def time_run_ms(torch, fn, reps: int) -> float:
+    """Device time of ``reps`` calls of ``fn`` between ONE pair of events,
+    queued behind a sleep kernel so that no call waits on the host."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    per_call = []
-    for _ in range(passes + 1):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        per_call.append(start.elapsed_time(end) / reps)
-    return statistics.median(per_call[1:])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_back_to_back_ms(torch, fn, reps: int = TIMING_REPS, passes: int = 5) -> float:
+    """Device time per call of ``reps`` calls of ``fn`` back to back inside
+    one pair of events, the L2 warm (median of ``passes`` runs after a
+    discarded one)."""
+    return statistics.median([time_run_ms(torch, fn, reps) / reps
+                              for _ in range(passes + 1)][1:])
+
+
+def time_clean_l2_ms(torch, fns: dict, flush, reps: int = TIMING_REPS,
+                     rounds: int = CLEAN_L2_ROUNDS) -> dict:
+    """Device time per call of each of ``fns`` with a clean L2 and no event
+    beside any call: ``reps`` x (flush, fn) between one pair of events, less
+    ``reps`` x flush alone, over ``reps``. The runs go in turns, the order
+    reversed every round (a b c flush, flush c b a, ...), and each fn's
+    i-th run is paired with the flush's i-th. Returns per name (min,
+    median, max) over the pairs."""
+    runs = {name: [] for name in [*fns, "flush"]}
+    order = list(runs)
+    for i in range(2 * rounds):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            fn = fns.get(name)
+            step = flush if fn is None else (lambda fn=fn: (flush(), fn()))
+            runs[name].append(time_run_ms(torch, step, reps))
+    out = {}
+    for name in fns:
+        per_call = [(t - f) / reps for t, f in zip(runs[name], runs["flush"])]
+        out[name] = (min(per_call), statistics.median(per_call), max(per_call))
+    return out
 
 
 def warm_up_clocks(torch, dev, seconds: float = 0.5) -> None:
@@ -291,22 +320,75 @@ def to_device(x, d):
     return x
 
 
-def render_bound_bytes(torch, lut, idx, r0, c0) -> int:
+def render_bound_bytes(torch, lut, latents) -> int:
     """Bytes K1 must move for these inputs: each LUT pixel that some
-    window covers read once, 16 B of inputs per env, each frame written
-    once."""
+    window covers read once, 40 B of latents (columns 1-5) and 4 B of
+    last_r per env, each frame written once."""
     from deep_active_inference_mc_torch.envs import raster
 
+    idx, r0, c0 = raster.clamp_windows(raster.sprite_index(latents),
+                                       *raster.window_offsets(latents))
     used = torch.zeros(lut.shape, dtype=torch.bool, device=lut.device)
     ar = torch.arange(raster.RES, device=lut.device)
-    used[idx.long()[:, None, None], (r0.long()[:, None] + ar)[:, :, None],
-         (c0.long()[:, None] + ar)[:, None, :]] = True
-    B = idx.shape[0]
-    return 4 * int(used.sum()) + 16 * B + 4 * B * raster.RES ** 2
+    used[idx[:, None, None], (r0[:, None] + ar)[:, :, None], (c0[:, None] + ar)[:, None, :]] = True
+    B = latents.shape[0]
+    return 4 * int(used.sum()) + 44 * B + 4 * B * raster.RES ** 2
 
 
-def phase_render(torch, dev, bw: float, smi: str) -> dict:
-    """K1 against its plain version; times and bound at the timed sizes."""
+def first_design(torch, lut, latents, last_r):
+    """(launch, route): K1's first design (``render.cu``'s
+    ``daimc_render_frames_first_design``), which no path runs any more.
+    ``launch`` runs its kernel alone on int32 sprite index and offsets
+    computed here once; ``route`` also computes them first, as separate
+    launches, as that design's renders did."""
+    import ctypes
+
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import build
+    from deep_active_inference_mc_torch.ops.cuda import render as k_render
+
+    fn = build.load(k_render.NAME).daimc_render_frames_first_design
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def inputs():
+        row0, col0 = raster.window_offsets(latents)
+        return (raster.sprite_index(latents).to(torch.int32).contiguous(),
+                row0.to(torch.int32).contiguous(), col0.to(torch.int32).contiguous(),
+                last_r.to(torch.float32).contiguous())
+
+    B = latents.shape[0]
+    fixed = inputs()
+
+    def launch(args=fixed):
+        out = torch.empty((B, 1, raster.RES, raster.RES), dtype=torch.float32, device=lut.device)
+        err = fn(lut.data_ptr(), *(a.data_ptr() for a in args), out.data_ptr(), B,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"K1's first design: launch failed, cudaError_t {err}")
+        return out
+
+    return launch, lambda: launch(inputs())
+
+
+def device_kernels(torch, fn) -> list:
+    """(name, count) of every device kernel that one call of ``fn`` ran,
+    from torch.profiler (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def phase_render(torch, dev, bw: float, smi: str) -> tuple:
+    """K1 against its plain version; launches per render; times and bound
+    at the timed sizes. Returns ({B: K1's numbers}, device kernels in one
+    render)."""
     from deep_active_inference_mc_torch.envs import dsprites as env_lib
     from deep_active_inference_mc_torch.envs import raster
     from deep_active_inference_mc_torch.ops.cuda import render as k_render
@@ -314,61 +396,85 @@ def phase_render(torch, dev, bw: float, smi: str) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(1)
     lut = raster.build_sprite_lut(dev)
-    # Evicting the L2 by reading a larger buffer leaves it clean; writing
-    # one (zero_) leaves it dirty, and the next kernel then pays for
-    # writing that buffer back. Both are timed; the clean one is K1's.
+    # Evicting the L2 by reading a larger buffer leaves it clean: K1 then
+    # reads the LUT from HBM, as after the network passes on the main path.
     l2 = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    flush, flush_dirty = l2.sum, l2.zero_
+    flush = l2.sum
     k1 = {}
 
     def hold(label, latents, last_r):
-        """K1 == plain on these inputs; returns (kernel inputs, max |diff|)."""
-        args = k_render.frame_inputs(latents, last_r)
-        got = k_render.render_frames_cuda(lut, *args)
-        want = k_render.render_frames_plain(lut, *args)
+        """K1 == plain on these inputs; returns max |diff|."""
+        got = k_render.render_frames_cuda(lut, latents, last_r)
+        want = k_render.render_frames_plain(lut, latents, last_r)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
+        err = (got - want).abs().max().item() if got.numel() else 0.0
         check(torch.equal(got, want), f"K1 differs from its plain version at {label}: "
               f"max |diff| {err}")
         print(f"[render] {label}: K1 == plain, bit for bit (tolerance 0, max_abs_err {err})")
-        return args, err
+        return err
 
     # The eval pass's edge probe: 96 rows at posY=31, last_r = 0.
     edge = evaluate.edge_probe_latents(dev)
     hold(f"B={edge.shape[0]} (the edge probe's latents)", edge,
          torch.zeros((edge.shape[0],), device=dev))
+    # Off the grid: offsets beyond 32 and below 0, sprites beyond 719 and
+    # below 0, clamped as XLA clamps them.
+    for B in (1000, 4096):
+        off = env_lib.sample_latents(gen, B, dev)
+        off[:, 1:] += torch.randint(-200, 200, (B, 5), generator=gen, device=dev)
+        hold(f"B={B} (latents off the grid)", off,
+             torch.rand((B,), generator=gen, device=dev) * 2 - 1)
+
+    # One render on the main path is one launch; the first design's was more.
+    state = env_lib.randomize(env_lib.reset(gen, TRAIN_BATCH, dev), gen)
+    route = device_kernels(torch, lambda: env_lib.render(lut, state))
+    _, first_route = first_design(torch, lut, state.latents, state.last_r)
+    n_first = sum(c for _, c in device_kernels(torch, first_route))
+    n_route = sum(c for _, c in route)
+    check(n_route == 1 and "render_frames_tma" in route[0][0],
+          f"one envs.dsprites.render ran {route} on the device, want K1 alone")
+    print(f"[render] one envs.dsprites.render at B={TRAIN_BATCH}: {n_route} device kernel "
+          f"({route[0][0]}); the first design's route: {n_first} (torch.profiler)", flush=True)
+
     for B in RENDER_CHECK_B:
         latents = env_lib.sample_latents(gen, B, dev)
         latents[: min(B, 2), 4:] = torch.tensor([[0, 0], [31, 31]], device=dev)[: min(B, 2)]
         last_r = torch.rand((B,), generator=gen, device=dev) * 2 - 1
         fixed = torch.tensor([0.0, -1.0, -0.3, 0.4], device=dev)[:B]
         last_r[: fixed.shape[0]] = fixed
-        args, err = hold(f"B={B}", latents, last_r)
+        err = hold(f"B={B}", latents, last_r)
         if B not in RENDER_TIME_B:
             continue
-        kernel = lambda: k_render.render_frames_cuda(lut, *args)
-        plain = lambda: k_render.render_frames_plain(lut, *args)
+        kernel = lambda: k_render.render_frames_cuda(lut, latents, last_r)
+        plain = lambda: k_render.render_frames_plain(lut, latents, last_r)
+        first, first_route = first_design(torch, lut, latents, last_r)
+        check(torch.equal(first(), plain()), f"K1's first design differs at B={B}")
+        frames, copy_dst = kernel(), torch.empty((B, 1, raster.RES, raster.RES), device=dev)
+        copy = lambda: copy_dst.copy_(frames)
         warm_up_clocks(torch, dev)
-        t = {"K1": time_ms(torch, kernel, flush), "plain": time_ms(torch, plain, flush),
-             "K1 warm L2": time_ms(torch, kernel),
-             "K1 dirty L2": time_ms(torch, kernel, flush_dirty)}
+        # K1 and its first design in turns (new, first, first, new, ...).
+        t = time_clean_l2_ms(torch, {"K1": kernel, "first design": first,
+                                     "its route": first_route, "plain": plain, "copy_": copy},
+                             flush)
+        events = time_ms(torch, kernel, flush)
         b2b = time_back_to_back_ms(torch, kernel)
-        nbytes = render_bound_bytes(torch, lut, *args[:3])
+        nbytes = render_bound_bytes(torch, lut, latents)
         bound_ms = nbytes / bw * 1e3
         ms = t["K1"][1]
-        # What its own pair of events adds to a call: the same warm call
-        # with them less without them.
-        events_ms = t["K1 warm L2"][1] - b2b
-        k1[B] = dict(max_abs_err=err, ms=ms, plain_ms=t["plain"][1], bound_ms=bound_ms,
-                     warm_ms=t["K1 warm L2"][1], back_to_back_warm_ms=b2b,
-                     events_ms=events_ms)
+        k1[B] = dict(max_abs_err=err, ms=ms, first_design_ms=t["first design"][1],
+                     first_design_route_ms=t["its route"][1],
+                     plain_ms=t["plain"][1], copy_ms=t["copy_"][1], bound_ms=bound_ms,
+                     bound_bytes=nbytes, per_call_events_ms=events[1],
+                     back_to_back_warm_ms=b2b)
         spread = ", ".join(f"{k} {q[1]:.5f} ({q[0]:.5f}-{q[2]:.5f})" for k, q in t.items())
-        print(f"[render] B={B}: ms median (quartiles): {spread}; K1 back to back (one event "
-              f"pair around {TIMING_REPS} calls, warm L2) {b2b:.5f} per call, so its own "
-              f"events add {events_ms:.5f}; bound {bound_ms:.5f} ms "
-              f"({nbytes} B at {bw / 1e12:.2f} TB/s): K1 at {bound_ms / ms:.1%} of "
-              f"bound, {bound_ms / (ms - events_ms):.1%} less the events [{smi}]", flush=True)
-    return k1
+        print(f"[render] B={B}: clean L2, no events, ms per call median (min-max of "
+              f"{2 * CLEAN_L2_ROUNDS} runs of {TIMING_REPS}): {spread}; K1 between its own events "
+              f"{events[1]:.5f} ({events[0]:.5f}-{events[2]:.5f}); K1 back to back, warm L2 "
+              f"{b2b:.5f}; bound {bound_ms:.5f} ms ({nbytes} B at {bw / 1e12:.2f} TB/s): K1 "
+              f"at {bound_ms / ms:.1%} of bound, its first design at "
+              f"{bound_ms / t['first design'][1]:.1%}, copy_ at {bound_ms / t['copy_'][1]:.1%} "
+              f"[{smi}]", flush=True)
+    return k1, n_route
 
 
 def phase_sweep(torch, smi: str, args) -> dict:
@@ -2039,7 +2145,7 @@ def main() -> None:
     bw = hbm_bytes_per_s(kind)
 
     # ---- 2. K1 against its plain version ---------------------------------
-    k1 = phase_render(torch, dev, bw, smi)
+    k1, per_render = phase_render(torch, dev, bw, smi)
     LAUNCHES.clear()  # the comparison launches above do not count
 
     figures = {}
@@ -2106,6 +2212,11 @@ def main() -> None:
         "bound_ms": k1[main_B]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "first_design_ms": k1[main_B]["first_design_ms"],
+        "first_design_route_ms": k1[main_B]["first_design_route_ms"],
+        "copy_ms": k1[main_B]["copy_ms"],
+        "per_call_events_ms": k1[main_B]["per_call_events_ms"],
+        "launches_per_render": per_render,
         "batch": main_B,
         "launches_by_path": {path: launches.get("render", 0)
                              for path, launches in runs.items()},

@@ -163,8 +163,9 @@ def step_repeated(state: EnvState, action: torch.Tensor, repeats: int,
 
 def render(lut: torch.Tensor, state: EnvState) -> torch.Tensor:
     """(B, 1, 64, 64) float32 frames: sprite + reward strip. On a card this
-    always launches kernel K1; on the CPU it runs K1's plain version."""
-    return k_render.render_frames(lut, *k_render.frame_inputs(state.latents, state.last_r))
+    always launches kernel K1, once, on the latents as they are; on the CPU
+    it runs K1's plain version."""
+    return k_render.render_frames(lut, state.latents, state.last_r)
 
 
 # 3-action variant: agent actions {0, 1, 2} map to env moves {up, left, right}.

@@ -123,16 +123,30 @@ def window_offsets(latents: torch.Tensor):
     return row0, col0
 
 
+def _xla_start(start: torch.Tensor, size: int, limit: int) -> torch.Tensor:
+    """XLA's rule for a gather index or a dynamic_slice start: a negative one
+    counts once from the end of its axis of ``size``, then it is clamped
+    into [0, limit]."""
+    start = start.long()
+    return torch.where(start < 0, start + size, start).clamp(0, limit)
+
+
+def clamp_windows(idx: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor):
+    """(idx, row0, col0) brought into range as the JAX package's gather and
+    dynamic_slice bring them (a no-op for valid latents)."""
+    return (_xla_start(idx, N_SPRITES, N_SPRITES - 1),
+            _xla_start(row0, CANVAS, CANVAS - RES),
+            _xla_start(col0, CANVAS, CANVAS - RES))
+
+
 def gather_windows(lut: torch.Tensor, idx: torch.Tensor, row0: torch.Tensor,
                    col0: torch.Tensor) -> torch.Tensor:
     """(B, 1, 64, 64): the 64x64 window at (row0, col0) of LUT sprite idx
-    per env. Index and offsets are clamped into range, as the JAX
-    package's gather and dynamic_slice clamp them (a no-op for valid
-    latents)."""
-    idx = idx.long().clamp(0, lut.shape[0] - 1)
+    per env, after ``clamp_windows``."""
+    idx, row0, col0 = clamp_windows(idx, row0, col0)
     ar = torch.arange(RES, device=lut.device)
-    rows = (row0.long().clamp(0, CANVAS - RES)[:, None] + ar)[:, :, None]
-    cols = (col0.long().clamp(0, CANVAS - RES)[:, None] + ar)[:, None, :]
+    rows = (row0[:, None] + ar)[:, :, None]
+    cols = (col0[:, None] + ar)[:, None, :]
     return lut[idx[:, None, None], rows, cols][:, None]
 
 

@@ -50,19 +50,39 @@ def make_latents(B, seed):
     return lat, LAST_R[np.arange(B) % len(LAST_R)]
 
 
+# Latents off the grid, as tests/test_torch_render.py holds the plain
+# version's clamps against XLA's: offsets beyond 32 and below 0 (counted
+# once from the end of the axis), sprites beyond 719 and below 0.
+OFF_GRID = np.asarray([[0, 3, 5, 39, 40, 45], [0, 2, 5, 39, -3, -7], [0, 5, 0, 0, 33, 32],
+                       [0, 1, 2, 3, 96, 97], [0, 0, 1, 2, 128, 129], [0, -1, 0, 0, 31, 0],
+                       [0, -4, 0, 0, 0, 31], [0, 4, 9, 99, 100, -100]])
+
+
+def card_inputs(B, seed, device):
+    """make_latents on ``device``, with the off-grid rows over the last envs."""
+    lat, last_r = make_latents(B, seed)
+    k = min(B - 1, len(OFF_GRID))  # keep env 0 on the grid
+    if k:
+        lat[B - k:] = OFF_GRID[:k]
+    last_r = last_r.copy()
+    last_r[B // 2] = np.float32(-0.0)
+    return torch.from_numpy(lat).to(device), torch.from_numpy(last_r).to(device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 33, 1024])
+@pytest.mark.parametrize("B", [1, 33, 256, 1000, 1024, 2048, 4096])
 def test_render_kernel_matches_plain(cuda_device, B):
-    lat, last_r = make_latents(B, seed=B)
-    args = k_render.frame_inputs(torch.from_numpy(lat).to(cuda_device),
-                                 torch.from_numpy(last_r).to(cuda_device))
+    """K1 bit for bit against its plain version on the card and on the CPU,
+    off-grid latents included."""
+    latents, last_r = card_inputs(B, B, cuda_device)
     lut = traster.build_sprite_lut(cuda_device)
     before = LAUNCHES["render"]
-    got = k_render.render_frames(lut, *args)
+    got = k_render.render_frames(lut, latents, last_r)
     torch.cuda.synchronize()
     assert LAUNCHES["render"] == before + 1
-    assert torch.equal(got, k_render.render_frames_plain(lut, *args))
-    cpu = k_render.render_frames_plain(traster.build_sprite_lut("cpu"), *(a.cpu() for a in args))
+    assert torch.equal(got, k_render.render_frames_plain(lut, latents, last_r))
+    cpu = k_render.render_frames_plain(traster.build_sprite_lut("cpu"), latents.cpu(),
+                                       last_r.cpu())
     assert torch.equal(got.cpu(), cpu)
 
 
@@ -72,11 +92,45 @@ def test_render_kernel_at_the_replay_and_demo_batches(cuda_device, B):
     """K1 at the distillation replay's batch (2048 at the defaults) and at
     the demo's single env, bit for bit against its plain version."""
     lat, last_r = make_latents(B, seed=B + 7)
-    args = k_render.frame_inputs(torch.from_numpy(lat).to(cuda_device),
-                                 torch.from_numpy(last_r).to(cuda_device))
+    latents = torch.from_numpy(lat).to(cuda_device)
+    last_r = torch.from_numpy(last_r).to(cuda_device)
     lut = traster.build_sprite_lut(cuda_device)
-    assert torch.equal(k_render.render_frames_cuda(lut, *args),
-                       k_render.render_frames_plain(lut, *args))
+    assert torch.equal(k_render.render_frames_cuda(lut, latents, last_r),
+                       k_render.render_frames_plain(lut, latents, last_r))
+
+
+@pytest.mark.cuda
+def test_render_kernel_reads_each_lut_it_is_given(cuda_device):
+    """Tensor maps are cached by LUT address: LUTs of different contents in
+    turn, more of them than the cache holds, each render from its own."""
+    latents, last_r = card_inputs(512, 3, cuda_device)
+    base = traster.build_sprite_lut(cuda_device)
+    luts = [base * (k + 1) for k in range(10)] + [base.flip(-1).contiguous(), base]
+    for _ in range(2):
+        for lut in luts:
+            assert torch.equal(k_render.render_frames_cuda(lut, latents, last_r),
+                               k_render.render_frames_plain(lut, latents, last_r))
+
+
+@pytest.mark.cuda
+def test_env_render_is_one_device_kernel(cuda_device):
+    """``envs.dsprites.render`` on a card is one launch: the profiler sees
+    exactly one device kernel in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = tenv.randomize(tenv.reset(gen, 512, cuda_device), gen)
+    lut = traster.build_sprite_lut(cuda_device)
+    tenv.render(lut, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tenv.render(lut, state)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    assert sum(e.count for e in rows) == 1, [(e.key, e.count) for e in rows]
+    assert "render_frames_tma" in rows[0].key
 
 
 @pytest.mark.cuda
