@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # what a check of the port runs
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of two
                                      # ai macro steps (after phase 3), of two
-                                     # training rounds (after phase 4) and of
+                                     # training rounds (after phase 4), of
                                      # two planner iterations (after phase 6)
+                                     # and of 16 bench env steps (phase 14)
     python3 chip_smoke.py --profile --trace-dir DIR  # and their chrome traces
     python3 chip_smoke.py --ladder   # adds the flagship's ladder rows that take
                                      # minutes each (phase 13); --ladder ROW,ROW
@@ -127,7 +128,16 @@ Phases (any failure exits non-zero and prints no result):
      fresh Adams, ``top`` bit-unchanged, MSEo within 0.85-1.25 x the run's
      last 10 epochs' median, K1 twice per round. (f) One distillation
      iteration (2 decisions) and one headless demo round per controller.
- 14. one JSON line describing every hand-written kernel, the card's
+ 14. the benchmark harness (``deep_active_inference_mc_torch/bench.py``):
+     every key of ``python -m deep_active_inference_mc_torch.bench`` through
+     its ``bench_*`` function at full width and with ``main``'s arguments,
+     each MCTS, bucketed and training key cut to one timed run after its
+     warm-ups (env steps at 4096 envs and G at 1024 x 4 rows uncut). Checks:
+     every rate finite and positive, every plan, the trained keys present,
+     K1 launched once per env step (256 x (1 + 3)) and twice per training
+     round. Prints each key's rate, wall and peak memory, then one line of
+     the readings.
+ 15. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 
@@ -2101,12 +2111,126 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
     return runs
 
 
+# ------------------------------------------------------------ slice 8
+BENCH_TIMED_REPS = 1  # of each MCTS and bucketed key, and timed epochs of each training key
+BENCH_TRAIN_ROUNDS = 16  # bench_train_round's rounds per epoch
+
+
+def profile_env_steps(torch, lut, trace_dir) -> None:
+    """The env-step key's loop, 2 x 8 steps at its 4096 envs (a warm-up run
+    and a timed run of ``bench.bench_env_steps``)."""
+    from deep_active_inference_mc_torch import bench
+
+    run = lambda: bench.bench_env_steps(lut, iters=8, reps=1)
+    profile_report(torch, f"bench env steps, {bench.ENV_BATCH} envs x 16 steps", run,
+                   trace_dir and Path(trace_dir) / "bench_env_steps_trace.json")
+
+
+def phase_bench(torch, dev, smi: str, args) -> dict:
+    """The port's benchmark functions (``deep_active_inference_mc_torch/bench.py``)
+    at full width, with ``bench.main``'s arguments, each MCTS, bucketed and
+    training key cut to BENCH_TIMED_REPS timed runs (the warm-ups kept);
+    the env-step and G keys uncut. Checks every rate finite and positive,
+    every plan (``check_plan``), the trained keys present, and K1's
+    launches: once per env step (ENV_ITERS x (1 + reps)), twice per
+    training round, once per planner or G key (its frames). Returns K1's
+    launch counts of the env-step and training keys."""
+    from deep_active_inference_mc_torch import bench
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+
+    t_phase = time.perf_counter()
+    lut = raster.build_sprite_lut(dev)
+    cfg = Config()
+    agent = bench.build_agent(cfg, "", dev)
+    agent_bf16 = bench.build_agent(cfg, "", dev, torch.bfloat16)
+    trained = bench._try_load_trained_agent(dev)
+    check(trained is not None, f"bench: {bench.TRAINED_CHECKPOINTS} is absent")
+    R, env_reps = BENCH_TIMED_REPS, 3
+    plans = bench.bench_mcts_plans
+    keys = {  # key: (function, arguments, keyword arguments, K1 launches)
+        "env_steps_per_sec": (bench.bench_env_steps, (lut,), {"reps": env_reps},
+                              bench.ENV_ITERS * (1 + env_reps)),
+        "efe_rollouts_per_sec": (bench.bench_efe_rollouts, (agent, lut), {}, 1),
+        "efe_rollouts_per_sec_bf16": (bench.bench_efe_rollouts, (agent_bf16, lut), {}, 1),
+        "mcts_plans_per_sec": (plans, (agent, lut), dict(repeats=50, reps=R), 1),
+        "mcts_plans_per_sec_fused": (plans, (agent, lut), dict(repeats=50, fused=True, reps=R),
+                                     1),
+        "mcts_plans_per_sec_fused_bf16": (plans, (agent_bf16, lut),
+                                          dict(repeats=50, fused=True, reps=R), 1),
+        "mcts_plans_per_sec_ref_budget": (plans, (agent_bf16, lut),
+                                          dict(repeats=REF_BUDGET, fused=True, reps=1), 1),
+        "mcts_plans_per_sec_ref_budget_k4": (plans, (agent_bf16, lut),
+                                             dict(repeats=REF_BUDGET, fused=True, reps=1,
+                                                  expand_k=4), 1),
+        "mcts_plans_per_sec_ref_budget_trained": (plans, (trained, lut),
+                                                  dict(repeats=REF_BUDGET, fused=True, reps=R),
+                                                  1),
+        "mcts_plans_per_sec_ref_budget_trained_bucketed": (
+            bench.bench_mcts_bucketed, (trained, lut), dict(repeats=REF_BUDGET, reps=R, B=1024),
+            1),
+        "mcts_plans_per_sec_ref_budget_trained_bucketed_b256": (
+            bench.bench_mcts_bucketed, (trained, lut), dict(repeats=REF_BUDGET, reps=R, B=256),
+            1),
+        "train_env_steps_per_sec": (bench.bench_train_round, (lut,), dict(batch=512, reps=R),
+                                    2 * BENCH_TRAIN_ROUNDS * (1 + R)),
+        "train_env_steps_per_sec_bf16": (bench.bench_train_round, (lut,),
+                                         dict(batch=512, bf16=True, reps=R),
+                                         2 * BENCH_TRAIN_ROUNDS * (1 + R)),
+        "train_env_steps_per_sec_b2048_bf16": (bench.bench_train_round, (lut,),
+                                               dict(batch=2048, bf16=True, reps=R),
+                                               2 * BENCH_TRAIN_ROUNDS * (1 + R)),
+    }
+    readings, runs = {}, {}
+    for key, (fn, fn_args, kwargs, want) in keys.items():
+        log = []
+        LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recorded_plans(torch, log):
+            out = fn(*fn_args, **kwargs)
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        rate = out[0] if isinstance(out, tuple) else out
+        check(math.isfinite(rate) and rate > 0, f"bench {key}: rate {rate}")
+        check(launches.get("render", 0) == want,
+              f"bench {key}: {launches.get('render', 0)} K1 launches, want {want}")
+        readings[key] = rate
+        extra = ""
+        if isinstance(out, tuple):
+            _, cap_frac, avg = out
+            check(0.0 <= cap_frac <= 1.0 and 0.0 < avg <= kwargs["repeats"],
+                  f"bench {key}: cap fraction {cap_frac}, mean repeats {avg}")
+            extra = f", depth cap binds {cap_frac:.4f}, mean repeats done {avg:.2f}"
+            if key.endswith("ref_budget"):
+                readings["mcts_depth_cap_bind_frac"] = cap_frac
+            elif key.endswith("ref_budget_k4"):
+                readings["mcts_depth_cap_bind_frac_k4"] = cap_frac
+            elif key.endswith("trained"):
+                readings["mcts_trained_avg_expansions"] = avg
+        if log:
+            extra += f", {len(log)} plans checked"
+        print(f"[bench] {key}: {rate:.6e} in {wall:.2f}s (warm-ups included), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, K1 launches "
+              f"{launches.get('render', 0)}{extra} [{smi}]", flush=True)
+        if key == "env_steps_per_sec" or key.startswith("train_"):
+            runs[f"bench_{key}"] = launches
+    print(f"[bench] readings ({BENCH_TIMED_REPS} timed run of each MCTS, bucketed and training "
+          f"key; cuBLAS TF32 {torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}): {json.dumps(readings)} [{smi}]", flush=True)
+    print(f"[bench] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
+    if args.profile:
+        profile_env_steps(torch, lut, args.trace_dir)
+    return runs
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
                         help="Profile two ai macro steps after the sweep phase, two training "
-                        "rounds after the training phase and two planner iterations after "
-                        "the planner phase.")
+                        "rounds after the training phase, two planner iterations after "
+                        "the planner phase and 16 env steps after the bench phase.")
     parser.add_argument("--trace-dir", default="",
                         help="With --profile: write the chrome traces here.")
     parser.add_argument("--ladder", nargs="?", const=",".join(FULL_LADDER), default="",
@@ -2193,7 +2317,10 @@ def main() -> None:
         # ---- 13. the flagship ------------------------------------------
         runs.update(phase_flagship(torch, dev, smi, work, figures, args.ladder))
 
-    # ---- 14. result lines ------------------------------------------------
+    # ---- 14. the benchmark harness ---------------------------------------
+    runs.update(phase_bench(torch, dev, smi, args))
+
+    # ---- 15. result lines ------------------------------------------------
     # K1's row: the launches of the training run (this system's main path)
     # and the times at its batch; the other paths and sizes beside them.
     for path, launches in runs.items():

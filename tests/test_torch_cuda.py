@@ -1,6 +1,7 @@
 """PyTorch port: the hand-written CUDA kernels against their plain PyTorch
 versions on a card, and the training round, the checkpoint, the MCTS
-sweeps, the distillation replay, the demo and the causal round on a card.
+sweeps, the distillation replay, the demo, the causal round and the
+benchmark's env steps on a card.
 Marked ``cuda``; without a card they skip. The file
 imports no JAX, so it also runs where JAX is absent:
 
@@ -345,3 +346,18 @@ def test_flagship_export_on_the_card(cuda_device):
     left, right = evaluate.habit_edge_policy(agent, traster.build_sprite_lut(cuda_device))
     assert left[0] > 2 * right[0] + 1e-3 and right[0] < 0.08
     assert all(right[c] > 2 * left[c] + 1e-3 and left[c] < 0.08 for c in (1, 2))
+
+
+@pytest.mark.cuda
+def test_bench_env_steps_launches_k1_once_per_step(cuda_device):
+    """``bench.bench_env_steps`` at 4096 envs, 4 steps and 1 timed run
+    after the warm-up: K1 launches once per step, 8 times."""
+    import math
+
+    from deep_active_inference_mc_torch import bench
+
+    lut = traster.build_sprite_lut(cuda_device)
+    LAUNCHES.clear()
+    rate = bench.bench_env_steps(lut, batch=4096, iters=4, reps=1)
+    assert LAUNCHES["render"] == 8
+    assert math.isfinite(rate) and rate > 0
