@@ -6,7 +6,8 @@
                                      # ai macro steps (after phase 3), of two
                                      # training rounds (after phase 4), of
                                      # two planner iterations (after phase 6)
-                                     # and of 16 bench env steps (phase 14)
+                                     # (phase 15 profiles 16 bench env steps
+                                     # either way)
     python3 chip_smoke.py --profile --trace-dir DIR  # and their chrome traces
     python3 chip_smoke.py --ladder   # adds the flagship's ladder rows that take
                                      # minutes each (phase 13); --ladder ROW,ROW
@@ -68,7 +69,7 @@ Phases (any failure exits non-zero and prints no result):
      planned.
   8. MCTS-visit distillation at full width: the distillation CLI on phase
      4's checkpoint at its defaults (256 envs, 100 repeats, expand_k 4,
-     fused, batch 2048, 4 passes), depth cut to 2 iterations of 8
+     fused, batch 2048, 4 passes), depth cut to 1 iteration of 8
      decisions (2048 records: one 2048-row replay step per pass) and
      10-step habit readouts on 512 envs. Checks: every plan, mid and down
      and their Adams bit-equal to the checkpoint's, the top Adam at 4 steps
@@ -137,7 +138,26 @@ Phases (any failure exits non-zero and prints no result):
      K1 launched once per env step (256 x (1 + 3)) and twice per training
      round. Prints each key's rate, wall and peak memory, then one line of
      the readings.
- 15. one JSON line describing every hand-written kernel, the card's
+ 15. graphs: phases 3, 4 and 14 (and the sweeps and rounds of 8, 11 and
+     13) run their hot loops as captured CUDA graphs, the port's
+     counterpart of the JAX package's jitted scans (``utils/graphs.py``).
+     Here each graphed path is held against its eager body from one seed.
+     (a) The bench's env-step run, 4096 envs x 256 steps: the state and
+     checksum bit-equal, K1's launches equal; env steps/s in turns;
+     16 steps of each under torch.profiler: the graphed ones are 16 graph
+     launches with K1 inside, and the busy share of both. (b) The sweep CLI's
+     ``main`` with ``ai``, ``habit`` and ``ai --plan_queue --steps 2``,
+     1024 envs x 20 macro steps: all scores equal (ai and habit against
+     phase 3's graphed runs), ms/macro of the CLI and of a second chunk.
+     (c) The trainer's epoch at 512 with the flagship's flags, 2 rounds
+     from one state, float32 and bf16: losses and gradient norms within
+     1e-5 relative of eager (or twice the spread of eager against eager,
+     printed: cuDNN's float32 backward sums with atomics; within 1e-5 with
+     cuDNN's deterministic algorithms), Adam's step
+     counts equal, the largest weight difference, ms/round of 5 more
+     epochs each in turns. (d) K1's launches equal on every path. (e)
+     The G and training keys of the bench, eager and graphed in turns.
+ 16. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 
@@ -196,7 +216,7 @@ PROB_MARGIN = 1e-2  # a selection argmax is compared only above this top-two gap
 # a 1-env, an odd and a large one; timed where a path spends its launches.
 # The distillation phase: the CLI's defaults (256 envs, 100 repeats, expand_k
 # 4, batch 2048, 4 passes), depth cut.
-DISTILL_ITERS = 2  # the CLI's default is 20
+DISTILL_ITERS = 1  # the CLI's default is 20; one keeps the script inside its time
 DISTILL_MACRO = 8  # 40: 8 x 256 = 2048 records, one 2048-row replay step per pass
 DISTILL_SWEEP_STEPS = 10  # the readout's default is 100
 DISTILL_BATCH = 2048
@@ -520,10 +540,11 @@ def phase_sweep(torch, smi: str, args) -> dict:
     return runs
 
 
-def profile_report(torch, label: str, run, trace_path) -> None:
+def profile_report(torch, label: str, run, trace_path) -> tuple:
     """Device time by kernel and by PyTorch op over one call of ``run``
     (torch.profiler), after a warm-up call; the busy share is the device
-    time over the host's wall time."""
+    time over the host's wall time. Returns (device busy us, wall us, K1
+    kernels run, CUDA graph launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -555,21 +576,29 @@ def profile_report(torch, label: str, run, trace_path) -> None:
     if trace_path:
         Path(trace_path).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_path))
+    k1 = sum(e.count for e in rows if "render_frames_tma" in e.key)
+    graph_launches = sum(e.count for e in prof.key_averages()
+                         if e.device_type == DeviceType.CPU and "cudaGraphLaunch" in e.key)
+    return busy_us, wall_us, k1, graph_launches
 
 
 def profile_macro(torch, sweep_app, trace_dir) -> None:
-    """Two ai macro steps of ``run_sweep`` (the agent and LUT are built
-    outside the window)."""
+    """Two ai macro steps of one sweep chunk, graphed as the sweep CLI runs
+    them (the agent, the LUT and the capture stay outside the window)."""
     from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
     from deep_active_inference_mc_torch.envs import raster
     from deep_active_inference_mc_torch.train import sweep as sweep_lib
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
 
     dev = torch.device("cuda")
     cfg = Config()
     agent = sweep_app.build_agent(cfg, "", dev)
     lut = raster.build_sprite_lut(dev)
-    run = lambda: sweep_lib.run_sweep(agent, cfg, lut, seed=0, n_envs=SWEEP_ENVS,
-                                      n_macro_steps=2, method="ai", jumps=JUMPS)
+    g = seeded_generator(dev, 0)
+    env = env_lib.randomize(env_lib.reset(g, SWEEP_ENVS, dev), g)
+    chunk = sweep_lib.make_sweep(agent, cfg, lut, method="ai", n_macro_steps=2, jumps=JUMPS)
+    run = lambda: chunk(seeded_generator(dev, 1), env)
     profile_report(torch, f"ai, {SWEEP_ENVS} envs x 2 macro", run,
                    trace_dir and Path(trace_dir) / "ai_macro_trace.json")
 
@@ -581,8 +610,9 @@ def train_config():
 
 
 def profile_rounds(torch, trace_dir) -> None:
-    """Two training rounds at the training phase's batch and flags (state
-    and LUT are built outside the window; the window ends in a sync)."""
+    """A 2-round epoch at the training phase's batch and flags, graphed as
+    the trainer runs it (state, LUT and the capture outside the window;
+    the window ends in the epoch's host sync)."""
     from deep_active_inference_mc_torch.envs import raster
     from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
     from deep_active_inference_mc_torch.train import loop as train_loop
@@ -592,11 +622,8 @@ def profile_rounds(torch, trace_dir) -> None:
     cfg = train_config()
     gen = seeded_generator(dev, 0)
     state = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen, dev)
-    round_fn = train_loop.make_round_fn(cfg, raster.build_sprite_lut(dev))
-
-    def run():
-        for _ in range(2):
-            round_fn(state, gen)
+    epoch = train_loop.make_epoch_fn(cfg, raster.build_sprite_lut(dev), 2)
+    run = lambda: epoch(state, gen)
 
     profile_report(torch, f"training, batch {TRAIN_BATCH} x 2 rounds", run,
                    trace_dir and Path(trace_dir) / "train_round_trace.json")
@@ -2116,17 +2143,32 @@ BENCH_TIMED_REPS = 1  # of each MCTS and bucketed key, and timed epochs of each 
 BENCH_TRAIN_ROUNDS = 16  # bench_train_round's rounds per epoch
 
 
-def profile_env_steps(torch, lut, trace_dir) -> None:
-    """The env-step key's loop, 2 x 8 steps at its 4096 envs (a warm-up run
-    and a timed run of ``bench.bench_env_steps``)."""
+PROFILED_ENV_STEPS = 16
+
+
+def profile_env_steps(torch, lut, trace_dir, graphed: bool = True) -> tuple:
+    """One run of the env-step key at its 4096 envs, PROFILED_ENV_STEPS
+    steps, graphed (captured in the warm-up run, so the window holds
+    replays only) or op by op. Returns ``profile_report``'s readings."""
     from deep_active_inference_mc_torch import bench
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
 
-    run = lambda: bench.bench_env_steps(lut, iters=8, reps=1)
-    profile_report(torch, f"bench env steps, {bench.ENV_BATCH} envs x 16 steps", run,
-                   trace_dir and Path(trace_dir) / "bench_env_steps_trace.json")
+    dev = lut.device
+    mode = "graphed" if graphed else "eager"
+    graphs = bench._graphs(dev, graphed)
+    start = env_lib.reset(seeded_generator(dev, 0), bench.ENV_BATCH, dev)
+
+    def run():
+        with torch.inference_mode():
+            bench.env_step_run(lut, start, 1, PROFILED_ENV_STEPS, graphs)
+
+    return profile_report(
+        torch, f"bench env steps, {mode}, {bench.ENV_BATCH} envs x {PROFILED_ENV_STEPS} steps",
+        run, trace_dir and Path(trace_dir) / f"bench_env_steps_{mode}_trace.json")
 
 
-def phase_bench(torch, dev, smi: str, args) -> dict:
+def phase_bench(torch, dev, smi: str) -> dict:
     """The port's benchmark functions (``deep_active_inference_mc_torch/bench.py``)
     at full width, with ``bench.main``'s arguments, each MCTS, bucketed and
     training key cut to BENCH_TIMED_REPS timed runs (the warm-ups kept);
@@ -2220,8 +2262,263 @@ def phase_bench(torch, dev, smi: str, args) -> dict:
           f"key; cuBLAS TF32 {torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
           f"{torch.backends.cudnn.allow_tf32}): {json.dumps(readings)} [{smi}]", flush=True)
     print(f"[bench] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
-    if args.profile:
-        profile_env_steps(torch, lut, args.trace_dir)
+    return runs
+
+
+# ------------------------------------------------------------ slice 9
+GRAPH_ROUNDS = 2  # the round's comparison: 2 rounds from one seeded state
+GRAPH_TIMED_EPOCHS = 5  # epochs of GRAPH_ROUNDS rounds each, per mode, for ms/round
+GRAPH_RTOL = 1e-5  # the round's losses and norms, graphed against eager
+
+
+def graphs_env_steps(torch, dev, smi: str, args) -> dict:
+    """(a) The bench's env-step run, 4096 envs x 256 steps from one state
+    and seed, eager and graphed: the state and checksum bit-equal, K1's
+    launches equal; K1 inside the graph's replays (torch.profiler); steps/s
+    of ``bench_env_steps`` in turns; the busy share of each (the device
+    time per step under the profiler over the wall per step without it)."""
+    from deep_active_inference_mc_torch import bench
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
+
+    lut = raster.build_sprite_lut(dev)
+    B, T = bench.ENV_BATCH, bench.ENV_ITERS
+    start = env_lib.reset(seeded_generator(dev, 0), B, dev)
+    out, launches = {}, {}
+    with torch.inference_mode():
+        for mode in ("eager", "graphed"):
+            graphs = bench._graphs(dev, mode == "graphed")
+            LAUNCHES.clear()
+            out[mode] = bench.env_step_run(lut, start, 1, T, graphs)
+            torch.cuda.synchronize()
+            launches[mode] = LAUNCHES.get("render", 0)
+        (se, acc_e), (sg, acc_g) = out["eager"], out["graphed"]
+        for f in ("latents", "score", "last_r"):
+            check(torch.equal(getattr(se, f), getattr(sg, f)),
+                  f"graphs: env step {f} differs between eager and graphed")
+        check(torch.equal(acc_e, acc_g),
+              f"graphs: env-step checksum {float(acc_e)} eager, {float(acc_g)} graphed")
+        check(launches["eager"] == launches["graphed"] == T,
+              f"graphs: env-step K1 launches {launches}, want {T} each")
+    rates = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        rates[mode].append(bench.bench_env_steps(lut, graphed=mode == "graphed"))
+    print(f"[graphs] (a) env step, {B} envs x {T} steps: state and checksum "
+          f"({float(acc_g):.1f}) bit-equal, K1 launches {launches}; env_steps/s eager "
+          f"{[f'{r:.4e}' for r in rates['eager']]}, graphed "
+          f"{[f'{r:.4e}' for r in rates['graphed']]} [{smi}]", flush=True)
+    n = PROFILED_ENV_STEPS
+    for mode in ("eager", "graphed"):
+        busy_us, _, traced, graph_launches = profile_env_steps(torch, lut, args.trace_dir,
+                                                               mode == "graphed")
+        if mode == "graphed":
+            # K1 runs inside the replays. CUPTI at times drops one replay's
+            # kernels from a profiler window.
+            check(graph_launches == n and n - 1 <= traced <= n,
+                  f"graphs: {n} replayed env steps show {traced} K1 kernels and "
+                  f"{graph_launches} graph launches under torch.profiler, want {n - 1} or {n} "
+                  f"and {n}")
+        device_us = busy_us / traced  # one K1 kernel per traced step
+        step_us = B / statistics.median(rates[mode]) * 1e6
+        print(f"[graphs] (a) env step {mode}: {graph_launches} graph launches, {traced} K1 "
+              f"kernels; {device_us:.1f} us of device time per step under the profiler, "
+              f"{step_us:.1f} us of wall per step unprofiled: busy {device_us / step_us:.1%} "
+              f"[{smi}]", flush=True)
+    return {"graphs_env_step": {"render": launches["graphed"]}}
+
+
+def graphs_sweeps(torch, dev, smi: str, phase3: dict) -> dict:
+    """(b) The sweep CLI's ``main`` with ``ai``, ``habit`` and ``ai`` with
+    the plan queue (2-step plans), 1024 envs x 20 macro steps, op by op:
+    every score equal to the graphed run's (phase 3's for ai and habit),
+    K1's launches too; ms/macro of the CLI (the graphed one pays its
+    capture) and of a second chunk on one sweep (captured already)."""
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.train import sweep as sweep_lib
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
+
+    base = ["--envs", str(SWEEP_ENVS), "--jumps", str(JUMPS), "--steps", "1",
+            "--samples", "1", "--seed", "0", "--macro", str(SWEEP_MACRO)]
+    cases = {"ai": ["--method", "ai"], "habit": ["--method", "habit"],
+             "ai+queue": ["--method", "ai", "--plan_queue", "--steps", "2"]}
+    runs = {}
+    for tag, flags in cases.items():
+        got = {}
+        for mode in ("eager", "graphed"):
+            if tag in phase3 and mode == "graphed":
+                got[mode] = (phase3[tag]["scores"], phase3[tag]["launches"].get("render", 0),
+                             phase3[tag]["ms_macro"])
+                continue
+            LAUNCHES.clear()
+            out = sweep_app.main(base + flags, graphed=mode == "graphed")
+            got[mode] = (out["scores"].cpu(), LAUNCHES.get("render", 0),
+                         out["wall"] / SWEEP_MACRO * 1e3)
+        (se, le, me), (sg, lg, mg) = got["eager"], got["graphed"]
+        check(torch.equal(se, sg), f"graphs: {tag} scores differ between eager and graphed "
+              f"({int((se != sg).sum())} of {SWEEP_ENVS})")
+        check(le == lg == SWEEP_MACRO, f"graphs: {tag} K1 launches {le} eager, {lg} graphed, "
+              f"want {SWEEP_MACRO}")
+        runs[f"graphs_sweep_{tag}"] = {"render": lg}
+        print(f"[graphs] (b) sweep CLI {tag}: all {SWEEP_ENVS} scores equal (mean "
+              f"{float(sg.double().mean()):.4f}), K1 launches {lg}; CLI ms/macro eager "
+              f"{me:.3f}, graphed {mg:.3f} (its capture included) [{smi}]", flush=True)
+    cfg = Config()
+    agent = sweep_app.build_agent(cfg, "", dev)
+    lut = raster.build_sprite_lut(dev)
+    g = seeded_generator(dev, 0)
+    env = env_lib.randomize(env_lib.reset(g, SWEEP_ENVS, dev), g)
+    for method in ("ai", "habit"):
+        ms = {}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            fn = sweep_lib.make_sweep(agent, cfg, lut, method=method, n_macro_steps=SWEEP_MACRO,
+                                      jumps=JUMPS, graphed=mode == "graphed")
+            fn(seeded_generator(dev, 1), env)  # the warm-up (and the capture)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(seeded_generator(dev, 2), env)  # ends in a host sync
+            ms.setdefault(mode, []).append((time.perf_counter() - t0) / SWEEP_MACRO * 1e3)
+        print(f"[graphs] (b) {method}, {SWEEP_ENVS} envs, a second {SWEEP_MACRO}-step chunk: "
+              f"ms/macro eager {[round(v, 3) for v in ms['eager']]}, graphed "
+              f"{[round(v, 3) for v in ms['graphed']]} [{smi}]", flush=True)
+    return runs
+
+
+def graphs_rounds(torch, dev, smi: str, bf16: bool) -> dict:
+    """(c) The trainer's epoch at 512 with the flagship's flags, 2 rounds
+    from one seeded state: eager three times (the run-to-run spread), then
+    graphed. The three losses and gradient norms within GRAPH_RTOL relative
+    of the eager run's (or within twice the eager runs' spread, shown), and
+    within GRAPH_RTOL with cuDNN's deterministic algorithms, Adam's step
+    counts equal, the largest weight difference shown, K1's launches
+    equal; then ms/round of GRAPH_TIMED_EPOCHS more epochs each, in turns."""
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.train import loop as train_loop
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
+
+    cfg = dataclasses.replace(train_config(), bf16=bf16)
+    lut = raster.build_sprite_lut(dev)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tag = "bf16" if bf16 else "float32"
+    runs = {}
+    for mode in ("eager", "eager 2", "eager 3", "graphed"):
+        state = train_loop.create_train_state(cfg, ActiveInferenceAgent(dtype=dtype),
+                                              seeded_generator(dev, 0), dev)
+        epoch = train_loop.make_epoch_fn(cfg, lut, GRAPH_ROUNDS, graphed=mode == "graphed")
+        LAUNCHES.clear()
+        state, metrics = epoch(state, seeded_generator(dev, 1))
+        runs[mode] = dict(state=state, epoch=epoch, metrics=metrics,
+                          launches=LAUNCHES.get("render", 0))
+    e, gr = runs["eager"], runs["graphed"]
+
+    def rel(a, b) -> float:
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+
+    def weights(a, b) -> float:
+        with torch.no_grad():
+            return max(float((x - y).abs().max())
+                       for x, y in zip(a.agent.parameters(), b.agent.parameters()))
+
+    # cuDNN's float32 backward sums with atomics: eager differs from eager
+    # from round to round. The tolerance is then twice the largest spread
+    # of two eager pairs.
+    spread = max(rel(runs[m]["metrics"], e["metrics"]) for m in ("eager 2", "eager 3"))
+    wspread = max(weights(runs[m]["state"], e["state"]) for m in ("eager 2", "eager 3"))
+    diff, wdiff = rel(gr["metrics"], e["metrics"]), weights(gr["state"], e["state"])
+    tol = max(GRAPH_RTOL, 2 * spread)
+    check(diff <= tol, f"graphs: {tag} round's metrics differ by {diff:.3e} relative, graphed "
+          f"against eager (eager against eager {spread:.3e}, tolerance {tol:.1e})")
+    steps = {m: adam_steps(runs[m]["state"]) for m in runs}
+    check(steps["graphed"] == steps["eager"] and set(steps["eager"].values()) == {GRAPH_ROUNDS},
+          f"graphs: {tag} Adam steps {steps}")
+    check(e["launches"] == gr["launches"] == 2 * GRAPH_ROUNDS,
+          f"graphs: {tag} K1 launches {e['launches']} eager, {gr['launches']} graphed, want "
+          f"{2 * GRAPH_ROUNDS}")
+    # With cuDNN's deterministic algorithms eager equals eager, and graphed
+    # must equal it too.
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = {}
+        for mode in ("eager", "graphed"):
+            state = train_loop.create_train_state(cfg, ActiveInferenceAgent(dtype=dtype),
+                                                  seeded_generator(dev, 0), dev)
+            epoch = train_loop.make_epoch_fn(cfg, lut, GRAPH_ROUNDS, graphed=mode == "graphed")
+            det[mode] = epoch(state, seeded_generator(dev, 1))[1]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    det_diff = rel(det["graphed"], det["eager"])
+    check(det_diff <= GRAPH_RTOL, f"graphs: {tag} round's metrics with cuDNN deterministic "
+          f"differ by {det_diff:.3e} relative, graphed against eager (tolerance {GRAPH_RTOL})")
+    ms = {"eager": [], "graphed": []}
+    for i in range(GRAPH_TIMED_EPOCHS):
+        for mode in (("eager", "graphed") if i % 2 == 0 else ("graphed", "eager")):
+            r = runs[mode]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["state"], _ = r["epoch"](r["state"], seeded_generator(dev, 2 + i))
+            ms[mode].append((time.perf_counter() - t0) / GRAPH_ROUNDS * 1e3)
+    print(f"[graphs] (c) round, batch {TRAIN_BATCH}, flagship flags, {tag}: {GRAPH_ROUNDS} "
+          f"rounds from one state: metrics graphed vs eager max rel {diff:.3e}, eager vs eager "
+          f"{spread:.3e} (tolerance {tol:.1e}), with cuDNN deterministic {det_diff:.3e} "
+          f"(tolerance {GRAPH_RTOL:.0e}); largest weight difference {wdiff:.3e} (eager vs "
+          f"eager {wspread:.3e}); Adam steps {steps['graphed']} both; K1 launches "
+          f"{gr['launches']} both; ms/round eager {[round(v, 3) for v in ms['eager']]}, graphed "
+          f"{[round(v, 3) for v in ms['graphed']]} [{smi}]", flush=True)
+    return {f"graphs_round_{tag}": {"render": gr["launches"]}}
+
+
+def graphs_bench_keys(torch, dev, smi: str) -> dict:
+    """(e) The bench's G and training keys (``bench.py``'s protocol, the
+    training keys at one timed epoch after the warm-up), op by op and
+    graphed in turns: eager, graphed, graphed, eager. Returns each key's
+    readings by mode."""
+    from deep_active_inference_mc_torch import bench
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import raster
+
+    lut = raster.build_sprite_lut(dev)
+    agent = bench.build_agent(Config(), "", dev)
+    agent_bf16 = bench.build_agent(Config(), "", dev, torch.bfloat16)
+    keys = {
+        "efe_rollouts_per_sec": (bench.bench_efe_rollouts, (agent, lut), {}),
+        "efe_rollouts_per_sec_bf16": (bench.bench_efe_rollouts, (agent_bf16, lut), {}),
+        "train_env_steps_per_sec": (bench.bench_train_round, (lut,), dict(batch=512, reps=1)),
+        "train_env_steps_per_sec_bf16": (bench.bench_train_round, (lut,),
+                                         dict(batch=512, bf16=True, reps=1)),
+        "train_env_steps_per_sec_b2048_bf16": (bench.bench_train_round, (lut,),
+                                               dict(batch=2048, bf16=True, reps=1)),
+    }
+    readings = {}
+    for key, (fn, fn_args, kwargs) in keys.items():
+        got = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            rate = fn(*fn_args, graphed=mode == "graphed", **kwargs)
+            check(math.isfinite(rate) and rate > 0, f"graphs: {key} {mode} rate {rate}")
+            got[mode].append(rate)
+        readings[key] = got
+        print(f"[graphs] (e) {key}: eager {[f'{r:.4e}' for r in got['eager']]}, graphed "
+              f"{[f'{r:.4e}' for r in got['graphed']]} [{smi}]", flush=True)
+    return readings
+
+
+def phase_graphs(torch, dev, smi: str, args, phase3: dict) -> dict:
+    """Each graphed path against its eager body on the card, from one seed.
+    Returns K1's launch counts of the graphed runs."""
+    t_phase = time.perf_counter()
+    runs = graphs_env_steps(torch, dev, smi, args)
+    runs.update(graphs_sweeps(torch, dev, smi, phase3))
+    for bf16 in (False, True):
+        runs.update(graphs_rounds(torch, dev, smi, bf16))
+    graphs_bench_keys(torch, dev, smi)
+    print(f"[graphs] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
     return runs
 
 
@@ -2230,7 +2527,7 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="Profile two ai macro steps after the sweep phase, two training "
                         "rounds after the training phase, two planner iterations after "
-                        "the planner phase and 16 env steps after the bench phase.")
+                        "the planner phase.")
     parser.add_argument("--trace-dir", default="",
                         help="With --profile: write the chrome traces here.")
     parser.add_argument("--ladder", nargs="?", const=",".join(FULL_LADDER), default="",
@@ -2318,9 +2615,12 @@ def main() -> None:
         runs.update(phase_flagship(torch, dev, smi, work, figures, args.ladder))
 
     # ---- 14. the benchmark harness ---------------------------------------
-    runs.update(phase_bench(torch, dev, smi, args))
+    runs.update(phase_bench(torch, dev, smi))
 
-    # ---- 15. result lines ------------------------------------------------
+    # ---- 15. graphs: each graphed path against its eager body ------------
+    runs.update(phase_graphs(torch, dev, smi, args, sweeps))
+
+    # ---- 16. result lines ------------------------------------------------
     # K1's row: the launches of the training run (this system's main path)
     # and the times at its batch; the other paths and sizes beside them.
     for path, launches in runs.items():

@@ -23,7 +23,9 @@ float32). ``--mesh`` shards the envs over one rank per visible card
 cards, and run on the CPU with ``--device cpu``); the ``ai``, ``t1``,
 ``t12``, ``habit``, ``random`` and ``expert`` scores equal the single-rank
 sweep's at the same seed (``train/sweep.py``). The bucketed planner runs on
-one rank.
+one rank. On a card without a mesh, every method but ``mcts`` replays one
+captured CUDA graph per macro step (``utils/graphs.py``); ``main(argv,
+graphed=False)`` runs the same steps op by op, for comparison.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import argparse
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -64,7 +67,7 @@ def build_agent(cfg: Config, network: str, device: torch.device,
     return agent.to(device)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, graphed: Optional[bool] = None) -> dict:
     parser = argparse.ArgumentParser(description="Batched agent sweep.")
     parser.add_argument("-n", "--network", type=str, default="",
                         help="Checkpoint dir (the port's, or a JAX one with "
@@ -146,11 +149,12 @@ def main(argv=None) -> dict:
         world = args.mesh or (torch.cuda.device_count() if device.type == "cuda" else 1)
         if world > 1 or mesh_lib.in_launched_group():
             return mesh_lib.launch(_sweep, (args,), world=world, device=args.device)[0]
-    return _sweep(None, args)
+    return _sweep(None, args, graphed)
 
 
-def _sweep(mesh, args: argparse.Namespace) -> dict:
-    """The sweep on one rank (``mesh`` None: the single-rank run)."""
+def _sweep(mesh, args: argparse.Namespace, graphed: Optional[bool] = None) -> dict:
+    """The sweep on one rank (``mesh`` None: the single-rank run); ``graphed``
+    as ``train.sweep.make_sweep``'s."""
     device = mesh.device if mesh else resolve_device(args.device)
     primary = mesh is None or mesh.is_primary
     cfg = Config()
@@ -186,6 +190,7 @@ def _sweep(mesh, args: argparse.Namespace) -> dict:
             samples=args.samples, jumps=args.jumps, temperature=args.temp,
             calc_mean=not args.sample_G, crn=args.crn, mcts_params=mcts_params,
             plan_queue=args.plan_queue, queue_cap=args.queue_cap, mesh=mesh,
+            graphed=graphed,
         )
     dt = time.time() - t0
     out["wall"] = dt

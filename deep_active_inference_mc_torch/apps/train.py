@@ -25,7 +25,10 @@ The default device is ``cuda``, and a machine without a card raises;
 ``--device cpu`` runs on the CPU. Matmuls and convolutions run with PyTorch's
 defaults (cuDNN may use TF32 for float32 convolutions on a card).
 ``--bf16`` runs the networks' forwards in bfloat16 (weights, Adam and the
-losses' reductions stay float32).
+losses' reductions stay float32). On a card without a mesh the epoch's
+rounds and the per-epoch sweeps replay captured CUDA graphs, as the JAX
+trainer jits its epoch (``train/loop.py``, ``train/sweep.py``); the first
+epoch of a run pays one eager round and the capture.
 
 Multi-device (``parallel/mesh.py``): ``--mesh_shape N`` trains on N ranks,
 ``--tp T`` of them per Megatron tensor-parallel group (N/T data-parallel

@@ -19,12 +19,14 @@ device memory) before it, and ONE JSON line on stdout with ``bench.py``'s
 keys and ``"device"``: the card's ``nvidia-smi`` name and power limit, or
 ``"cpu"``.
 
-Every timed region starts after a warm-up (the kernel's build and cuDNN's
-first-call setup stay outside) and is a host clock around work that ends in
-``torch.cuda.synchronize()``. The loops that ``bench.py`` runs as one
-compiled ``lax.scan`` are Python loops here, so their rates include the
-host's launches. PyTorch's TF32 and cuDNN settings are left at their
-defaults, as the other entry points leave them, and printed.
+Every timed region starts after a warm-up (the kernel's build, cuDNN's
+first-call setup and the graphs' captures stay outside) and is a host clock
+around work that ends in ``torch.cuda.synchronize()``. The loops that
+``bench.py`` runs as one compiled ``lax.scan`` (the env steps, G, the
+training epoch) replay one captured CUDA graph per step on a card
+(``utils/graphs.py``), each step's noise drawn eagerly in the eager loop's
+order; the planners run op by op. PyTorch's TF32 and cuDNN settings are
+left at their defaults, as the other entry points leave them, and printed.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 from deep_active_inference_mc_torch.train import loop as train_loop
 from deep_active_inference_mc_torch.utils import compcache
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_generator
 
 ENV_BATCH = 4096
@@ -84,57 +87,94 @@ def _frames(lut: torch.Tensor, batch: int) -> torch.Tensor:
     return env_lib.render(lut, env_lib.reset(seeded_generator(dev, 0), batch, dev))
 
 
+def env_step_run(lut: torch.Tensor, state: env_lib.EnvState, seed: int, iters: int,
+                 graphs: Optional[graphs_lib.Graphs] = None):
+    """One run of the env-step key, ``bench.py``'s scan: ``iters`` steps,
+    each step's action and then its respawns drawn from the run's
+    generator, the checksum summed on the device. Returns (state,
+    checksum)."""
+    dev = lut.device
+    g = seeded_generator(dev, seed)
+    xs = ((torch.randint(0, env_lib.NUM_ACTIONS, (state.batch,), generator=g, device=dev),
+           env_lib.sample_latents(g, state.batch, dev)) for _ in range(iters))
+
+    def body(carry, x):
+        (state, acc), (action, respawn) = carry, x
+        state, chk = env_step(lut, state, action, respawn=respawn)
+        return (state, acc + chk), None
+
+    carry = (state, torch.zeros((), device=dev))
+    if graphs is None:
+        return graphs_lib.eager_scan(body, carry, xs, iters)[0]
+    return graphs.scan(body, carry, xs, iters, deps=lambda: [lut])[0]
+
+
+def _graphs(device: torch.device, graphed: Optional[bool]) -> Optional[graphs_lib.Graphs]:
+    """The runs' graphs (default: on a card), or None to run op by op."""
+    if graphed is None:
+        graphed = device.type == "cuda"
+    return graphs_lib.Graphs() if graphed else None
+
+
 @torch.inference_mode()
 def bench_env_steps(lut: torch.Tensor, batch: int = ENV_BATCH, iters: int = ENV_ITERS,
-                    reps: int = 3) -> float:
+                    reps: int = 3, graphed: Optional[bool] = None) -> float:
     """step + render for ``batch`` envs, ``iters`` sequential steps per run:
     one warm-up run, then ``reps`` timed runs. K1 launches
-    ``iters * (1 + reps)`` times on a card."""
+    ``iters * (1 + reps)`` times on a card. ``graphed`` (default: on a
+    card) replays one captured step per step (``env_step_run``)."""
     dev = lut.device
+    graphs = _graphs(dev, graphed)
     state = env_lib.reset(seeded_generator(dev, 0), batch, dev)
-
-    def run(state, seed):
-        g = seeded_generator(dev, seed)
-        acc = torch.zeros((), device=dev)  # bench.py's checksum: summed on the device, not read
-        for _ in range(iters):
-            a = torch.randint(0, env_lib.NUM_ACTIONS, (batch,), generator=g, device=dev)
-            state, chk = env_step(lut, state, a, g)
-            acc += chk
-        return state
-
-    state = run(state, 1)
+    state, _ = env_step_run(lut, state, 1, iters, graphs)
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(reps):
-        state = run(state, 2 + i)
+        state, _ = env_step_run(lut, state, 2 + i, iters, graphs)
     _sync(dev)
     dt = time.perf_counter() - t0
     return batch * iters * reps / dt
 
 
+def efe_run(agent: ActiveInferenceAgent, o: torch.Tensor, seed: int, iters: int,
+            graphs: Optional[graphs_lib.Graphs] = None) -> torch.Tensor:
+    """One run of the G keys, ``bench.py``'s scan: ``iters`` single-step
+    G estimates of every action of ``o`` (mean G, one sample), each one's
+    noise drawn from the run's generator as ``calculate_G_4_repeated``
+    draws it; returns the sum of G (``bench.py`` does not read it)."""
+    dev, B = o.device, o.shape[0]
+    g = seeded_generator(dev, seed)
+    xs = (efe.draw_rollout(agent, B, B * agent.pi_dim, g, dev, steps=1, calc_mean=True,
+                           samples=1, mean_estimator=True) for _ in range(iters))
+
+    def body(acc, d):
+        G, _, _ = efe.calculate_G_4_repeated(agent, o, steps=1, calc_mean=True, samples=1,
+                                             draws=d)
+        return acc + G.sum(), None
+
+    acc = torch.zeros((), device=dev)
+    if graphs is None:
+        return graphs_lib.eager_scan(body, acc, xs, iters)[0]
+    return graphs.scan(body, acc, xs, iters,
+                       deps=lambda: graphs_lib.module_deps(agent) + [o])[0]
+
+
 @torch.inference_mode()
 def bench_efe_rollouts(agent: ActiveInferenceAgent, lut: torch.Tensor,
                        batch: int = EFE_BATCH, iters: int = EFE_ITERS,
-                       reps: int = 3) -> float:
+                       reps: int = 3, graphed: Optional[bool] = None) -> float:
     """Single-step G for ``batch`` states x every action (training config:
     calc_mean=True, samples=1), ``iters`` estimates per run: one rollout
-    per (state, action) pair."""
+    per (state, action) pair. ``graphed`` (default: on a card) replays one
+    captured G per estimate (``efe_run``)."""
     dev = lut.device
+    graphs = _graphs(dev, graphed)
     o = _frames(lut, batch)
-
-    def run(seed):
-        g = seeded_generator(dev, seed)
-        acc = torch.zeros((), device=dev)  # as in bench.py: the sum of G, not read
-        for _ in range(iters):
-            G, _, _ = efe.calculate_G_4_repeated(agent, o, g, steps=1, calc_mean=True,
-                                                 samples=1)
-            acc += G.sum()
-
-    run(1)
+    efe_run(agent, o, 1, iters, graphs)
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(reps):
-        run(2 + i)
+        efe_run(agent, o, 2 + i, iters, graphs)
     _sync(dev)
     dt = time.perf_counter() - t0
     return batch * agent.pi_dim * iters * reps / dt
@@ -192,17 +232,18 @@ def bench_mcts_bucketed(agent: ActiveInferenceAgent, lut: torch.Tensor, repeats:
 
 
 def bench_train_round(lut: torch.Tensor, batch: int = 512, bf16: bool = False,
-                      rounds: int = 16, reps: int = 3) -> float:
+                      rounds: int = 16, reps: int = 3, graphed: Optional[bool] = None) -> float:
     """The act -> plan -> step -> train round (data generation and the
     three staged Adam updates, K1 twice per round): env steps/s inside
     training at a batch and precision. One warm-up epoch of ``rounds``
-    rounds, then ``reps`` timed epochs."""
+    rounds, then ``reps`` timed epochs; ``graphed`` as ``make_epoch_fn``'s
+    (default: one captured round replayed per round on a card)."""
     dev = lut.device
     cfg = Config(batch=batch, bf16=bf16)
     agent = ActiveInferenceAgent(s_dim=cfg.s_dim, pi_dim=cfg.pi_dim,
                                  dtype=torch.bfloat16 if bf16 else torch.float32)
     state = train_loop.create_train_state(cfg, agent, seeded_generator(dev, 0), dev)
-    epoch_fn = train_loop.make_epoch_fn(cfg, lut, rounds)
+    epoch_fn = train_loop.make_epoch_fn(cfg, lut, rounds, graphed=graphed)
     state, _ = epoch_fn(state, seeded_generator(dev, 1))
     _sync(dev)
     t0 = time.perf_counter()

@@ -168,16 +168,15 @@ def render(lut: torch.Tensor, state: EnvState) -> torch.Tensor:
     return k_render.render_frames(lut, state.latents, state.last_r)
 
 
-# 3-action variant: agent actions {0, 1, 2} map to env moves {up, left, right}.
-ACTIONS_3 = (0, 2, 3)
-
-
 def to_env_actions(actions: torch.Tensor, pi_dim: int = 4) -> torch.Tensor:
-    """Map agent-space action indices to env moves for variant action sets."""
+    """Map agent-space action indices to env moves for variant action sets:
+    the 3-action agent's {0, 1, 2} are the env's {0, 2, 3} (up, left, right),
+    computed on the device (no host tensor: the map runs under capture)."""
     if pi_dim == 4:
         return actions
     if pi_dim == 3:
-        return torch.as_tensor(ACTIONS_3, device=actions.device)[actions.long()]
+        actions = actions.long()
+        return torch.where(actions == 0, actions, actions + 1)
     raise ValueError(f"Unknown pi_dim {pi_dim}")
 
 
@@ -212,9 +211,11 @@ def expert_policy(state: EnvState, randomness: float = 0.4) -> torch.Tensor:
     up+right, ellipses/hearts want up+left."""
     right = 0.5 * (1.0 - randomness / 2.0)
     wrong = 0.5 * randomness / 2.0
-    dev = state.device
-    square = torch.tensor([right, wrong, wrong, right], dtype=torch.float32, device=dev)
-    other = torch.tensor([right, wrong, right, wrong], dtype=torch.float32, device=dev)
+    # Built on the device (no host copy, so the policy runs under capture):
+    # squares favour actions 0 and 3, the others 0 and 2.
+    a = torch.arange(NUM_ACTIONS, device=state.device)
+    square = torch.where((a == 0) | (a == 3), right, wrong)
+    other = torch.where((a == 0) | (a == 2), right, wrong)
     is_square = (state.latents[..., 1] == 0)[..., None]
     return torch.where(is_square, square, other)
 

@@ -10,6 +10,14 @@ card: a failed build, tensor-map encode or launch raises.
 
 Output: (B, 1, 64, 64) float32 frames, NCHW, which are the bytes of the
 JAX package's (B, 64, 64, 1) NHWC frames.
+
+Under CUDA graph capture (``utils/graphs.py``) the launch is recorded on
+the capturing stream with the LUT's tensor map as a kernel parameter, so a
+replay renders from the latents then in the same buffer. The build, the
+library's load and the carveout's setting happen at the first launch,
+which must come before any capture (a graph's warm-up step): a first
+launch under capture raises. ``LAUNCHES`` counts a captured launch once;
+the graph helper moves that count to its replays.
 """
 
 from __future__ import annotations
@@ -70,6 +78,9 @@ def render_frames_cuda(lut, latents, last_r) -> torch.Tensor:
     out = torch.empty((B, 1, RES, RES), dtype=torch.float32, device=lut.device)
     if B == 0:
         return out
+    if _entry_point.cache_info().currsize == 0 and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("K1's first launch came under graph capture: run a warm-up step "
+                           "first")
     fn = _entry_point()
     with torch.cuda.device(lut.device):
         stream = torch.cuda.current_stream(lut.device).cuda_stream

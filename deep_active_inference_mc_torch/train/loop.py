@@ -15,9 +15,15 @@ come from the pre-update encoder (the down layer steps last), the omega
 input ``kl_pi`` and the down loss's prior ``ps1_mean/logvar`` are outputs of
 forwards that ran before their layer's step.
 
-The JAX epoch is one ``lax.scan``; here it is a Python loop whose metrics
-stay on the device (one stack and one transfer per epoch, no host sync
-inside a round).
+The JAX epoch is one jitted ``lax.scan``; here, on a card, the round is
+one captured CUDA graph replayed once per round (``utils/graphs.py``): each
+round's noise is drawn eagerly (``draw_round``, the eager round's order)
+into the graph's static buffers, and each replay writes its metrics row
+into a static (rounds, K) table, moved to the host once per epoch. On the
+CPU, under a mesh or with ``graphed=False`` the same rounds run op by op.
+On a card the Adams are ``capturable`` (their step counters and bias
+corrections on the device, in float32, as optax computes them), eager or
+graphed.
 
 Under a mesh (``parallel/mesh.py``; the counterpart of
 ``make_sharded_train_round``) every rank draws the global batch's noise and
@@ -31,7 +37,7 @@ a collective on a card's tensors stages them through the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,6 +49,7 @@ from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.infer.precision import OmegaParams, PrecisionState
 from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.train import losses
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 
 LAYERS = ("top", "mid", "down")
 METRIC_KEYS = ("F_top", "F_mid", "F_down", "nll_o", "omega", "omega_std", "kl_pi",
@@ -101,9 +108,27 @@ def shard_round_draws(draws: RoundDraws, cfg: Config, pi_dim: int, batch: int,
 def make_optimizers(cfg: Config, agent: ActiveInferenceAgent) -> Dict[str, torch.optim.Adam]:
     """One Adam per layer (b1 0.9, b2 0.999, eps 1e-8: optax's defaults and
     torch's). The optional global-norm clip (``cfg.clip_grad``) is applied
-    by the round, before the step (``clip_by_global_norm_``)."""
+    by the round, before the step (``clip_by_global_norm_``). On a card they
+    are ``capturable``, so that a graph can hold their steps."""
     rates = {"top": cfg.l_rate_top, "mid": cfg.l_rate_mid, "down": cfg.l_rate_down}
-    return {k: torch.optim.Adam(getattr(agent, k).parameters(), lr=rates[k]) for k in LAYERS}
+    capturable = next(agent.parameters()).is_cuda
+    opts = {k: torch.optim.Adam(getattr(agent, k).parameters(), lr=rates[k],
+                                capturable=capturable) for k in LAYERS}
+    for opt in opts.values():
+        # Eager steps of a capturable Adam are meant here (a graph's warm-up
+        # round, the mesh rounds, the eager comparison): no warning.
+        opt._warned_capturable_if_run_uncaptured = True
+    return opts
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``opt.load_state_dict(state_dict)`` keeping ``opt``'s own
+    ``capturable``, which decides where the step counters go: a checkpoint
+    saved on the CPU resumes capturable on a card, and one saved on a card
+    resumes on the CPU."""
+    groups = [dict(saved, capturable=own["capturable"])
+              for saved, own in zip(state_dict["param_groups"], opt.param_groups, strict=True)]
+    opt.load_state_dict(dict(state_dict, param_groups=groups))
 
 
 def create_train_state(cfg: Config, agent: ActiveInferenceAgent,
@@ -260,23 +285,49 @@ def make_round_fn(cfg: Config, lut: torch.Tensor,
 
 
 def make_epoch_fn(cfg: Config, lut: torch.Tensor, rounds: int,
-                  mesh: Optional[mesh_lib.Mesh] = None):
-    """Whole-epoch closure ``(state, generator) -> (state, metrics)``:
-    ``rounds`` training rounds, returning the last round's metrics plus the
-    worst-round maxima ``<key>_max`` of ``EPOCH_MAX_KEYS`` as floats. The
-    epoch's one host sync is the transfer of the stacked metrics."""
-    round_fn = make_round_fn(cfg, lut, mesh)
+                  mesh: Optional[mesh_lib.Mesh] = None, graphed: Optional[bool] = None):
+    """Whole-epoch closure ``(state, generator, draws=None) -> (state,
+    metrics)``: ``rounds`` training rounds, returning the last round's
+    metrics plus the worst-round maxima ``<key>_max`` of ``EPOCH_MAX_KEYS``
+    as floats. ``draws`` (one RoundDraws per round) replaces the generator.
+    The epoch's one host sync is the transfer of the stacked metrics.
 
-    def epoch(state, generator):
-        rows: List[torch.Tensor] = []
-        for _ in range(rounds):
-            state, metrics = round_fn(state, generator)
-            rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
-        table = torch.stack(rows).cpu()
+    ``graphed`` (default: on a card without a mesh) replays the round as a
+    captured CUDA graph; False runs the same body op by op. A graphed epoch
+    on the CPU or under a mesh raises."""
+    omega_params = OmegaParams(cfg.var_a, cfg.var_b, cfg.var_c, cfg.var_d)
+    if graphed is None:
+        graphed = lut.is_cuda and mesh is None
+    if graphed and mesh is not None:
+        raise ValueError("a graphed epoch runs on one rank (mesh=None)")
+    graphs = graphs_lib.Graphs()
+
+    def epoch(state, generator, draws=None):
+        agent, opts = state.agent, state.opts
+        batch = state.env.batch * (mesh.n_data if mesh else 1)  # the global batch
+        xs = iter(draws) if draws is not None else (
+            draw_round(agent, cfg, batch, generator, lut.device) for _ in range(rounds))
+
+        def body(carry, d):
+            env, precision = carry
+            st, metrics = train_round(cfg, omega_params, TrainState(agent, opts, precision, env),
+                                      lut, draws=d, mesh=mesh)
+            return (st.env, precision), torch.stack([metrics[k] for k in METRIC_KEYS])
+
+        carry = (state.env, state.precision)
+        if graphed:
+            deps = lambda: (graphs_lib.module_deps(agent)
+                            + graphs_lib.optimizer_deps(*opts.values()) + [lut])
+            carry, table = graphs.scan(body, carry, xs, rounds, deps=deps)
+        else:
+            carry, table = graphs_lib.eager_scan(body, carry, xs, rounds)
+        state.env, state.precision = carry
+        table = table.cpu()
         out = dict(zip(METRIC_KEYS, table[-1].tolist()))
         worst = dict(zip(METRIC_KEYS, table.max(dim=0).values.tolist()))
         for k in EPOCH_MAX_KEYS:
             out[k + "_max"] = worst[k]
         return state, out
 
+    epoch.graphs = graphs
     return epoch

@@ -27,7 +27,10 @@ and one seeded from ``(seed, 0)`` for the initial envs. The planner of
 macro step ``t`` of a chunk is seeded from that generator's seed and ``t``.
 Everything runs under ``torch.inference_mode()``; ``make_sweep``'s host
 syncs once per chunk (and, under mcts, where the planner reads its done
-flag).
+flag). On a card a chunk of every method but mcts is the counterpart of
+the JAX package's jitted scan: one captured CUDA graph of a macro step,
+replayed per macro step, its noise drawn eagerly with ``draw_macro`` (the
+order the eager step draws it), so it scores what the eager chunk scores.
 
 ``mesh`` (``parallel/mesh.py``, data ranks only) shards the envs over the
 ranks, the counterpart of ``run_sweep(..., mesh=)``: every rank draws each
@@ -54,6 +57,7 @@ from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 from deep_active_inference_mc_torch.utils import random as rnd
 from deep_active_inference_mc_torch.utils.device import seeded_generator
 
@@ -215,6 +219,7 @@ def make_sweep(
     plan_queue: bool = False,
     queue_cap: int = 0,
     mesh: Optional[mesh_lib.Mesh] = None,
+    graphed: Optional[bool] = None,
 ):
     """A sweep: ``run(generator, env, qstate=None)`` -> score stats.
 
@@ -223,11 +228,23 @@ def make_sweep(
     with samples=10 is its sampling default. With ``plan_queue`` (mcts/ai/
     t1/t12) the result carries ``"qstate"`` = (queue, qlen, qpos) for the
     next chunk. ``record_traj`` adds ``"score_traj"``, the fleet-mean
-    score after each macro step."""
+    score after each macro step.
+
+    ``graphed`` (default: on a card, without a mesh, for every method but
+    mcts) replays one captured macro step per macro step
+    (``utils/graphs.py``), its noise drawn eagerly with ``draw_macro`` into
+    the graph's static buffers and its tallies written into a static
+    (n_macro_steps, 6) table; False runs op by op. A graphed sweep on the
+    CPU raises, and so does one under a mesh or for mcts."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     if mcts_params is None:
         mcts_params = mcts_lib.MCTSParams(repeats=50, max_depth=16)
+    if graphed is None:
+        graphed = method != "mcts" and mesh is None and lut.is_cuda
+    if graphed and (mesh is not None or method == "mcts"):
+        raise ValueError("a graphed sweep runs on one rank and not for mcts (its planner "
+                         "reads its done flags on the host)")
     use_queue = plan_queue and method in QUEUE_METHODS
     # queue_cap > 0 bounds commitment: how much of each plan executes
     # before re-planning (1: re-plan every macro step; 0: the whole plan).
@@ -235,13 +252,37 @@ def make_sweep(
     if queue_cap:
         q_cap = min(q_cap, queue_cap)
     render_fn = _render_fn(lut, cfg.resolution, cfg.colour_channels)
+    graphs = graphs_lib.Graphs()
 
-    def macro_step(generator, env, a, respawns=None):
+    def macro_step(carry, d, generator=None, seed_path=None):
+        """One macro step: ((env, qstate), tallies). ``d`` (None: drawn
+        from ``generator``) is this rank's MacroDraws."""
+        env, qstate = carry
+        o = render_fn(env)
+        decision = (agent, generator, o, env, method, steps, samples, temperature,
+                    mcts_params, calc_mean, crn, d, seed_path)
+        respawns = None if d is None else d.respawns
+        if use_queue:
+            new_q, new_len = _controller_plan(*decision)
+            queue, qlen, qpos = qstate
+            need = qpos >= qlen
+            queue = torch.where(need[:, None], new_q[:, :q_cap], queue)
+            qlen = torch.where(need, torch.clamp(new_len, max=q_cap), qlen)
+            qpos = torch.where(need, 0, qpos)
+            a = torch.gather(queue, 1, qpos[:, None])[:, 0]
+            qpos = qpos + 1
+        else:
+            a = _controller_actions(*decision)
         # The expert acts in env space; agent controllers (and the random
         # baseline) act in agent space.
         if method != "expert":
             a = env_lib.to_env_actions(a, agent.pi_dim)
-        return _step_and_tally(env, a, jumps, generator, respawns)
+        env, scored, tallies = _step_and_tally(env, a, jumps, generator, respawns)
+        if use_queue:
+            # Scoring flushes the queue: the plan addressed the
+            # now-respawned object.
+            qstate = (queue, qlen, torch.where(scored, qlen, qpos))
+        return (env, qstate), tallies
 
     def init_qstate(n_envs: int, device):
         z = lambda *shape: torch.zeros(shape, dtype=torch.long, device=device)
@@ -258,41 +299,27 @@ def make_sweep(
         if use_queue and qstate is None:
             qstate = init_qstate(env.batch, env.device)
         n_total = env.batch * (mesh.n_data if mesh else 1)
-        rows = []
-        for t in range(n_macro_steps):
-            d = None if draws is None else draws[t]
-            if mesh is not None:
-                if d is None:
-                    d = draw_macro(agent, method, n_total, generator, env.device, steps,
-                                   samples, calc_mean, crn, jumps)
-                d = shard_macro_draws(d, n_total, mesh, agent.pi_dim, crn)
-            o = render_fn(env)
-            # The planner's seeds: this chunk's seed and the macro step
-            # (and the rank, under a mesh).
-            seed_path = None if generator is None else (generator.initial_seed(), t)
-            if seed_path and mesh is not None and mesh.world > 1:
-                seed_path += (mesh.rank,)
-            decision = (agent, generator, o, env, method, steps, samples, temperature,
-                        mcts_params, calc_mean, crn, d, seed_path)
-            respawns = None if d is None else d.respawns
-            if use_queue:
-                new_q, new_len = _controller_plan(*decision)
-                queue, qlen, qpos = qstate
-                need = qpos >= qlen
-                queue = torch.where(need[:, None], new_q[:, :q_cap], queue)
-                qlen = torch.where(need, torch.clamp(new_len, max=q_cap), qlen)
-                qpos = torch.where(need, 0, qpos)
-                a = torch.gather(queue, 1, qpos[:, None])[:, 0]
-                qpos = qpos + 1
-                env, scored, tallies = macro_step(generator, env, a, respawns)
-                # Scoring flushes the queue: the plan addressed the
-                # now-respawned object.
-                qstate = (queue, qlen, torch.where(scored, qlen, qpos))
-            else:
-                a = _controller_actions(*decision)
-                env, _, tallies = macro_step(generator, env, a, respawns)
-            rows.append(tallies)
-        tallies = torch.stack(rows)
+        draw = lambda: draw_macro(agent, method, n_total, generator, env.device, steps,
+                                  samples, calc_mean, crn, jumps)
+        if graphed:
+            xs = iter(draws) if draws is not None else (draw() for _ in range(n_macro_steps))
+            (env, qstate), tallies = graphs.scan(
+                macro_step, (env, qstate), xs, n_macro_steps,
+                deps=lambda: graphs_lib.module_deps(agent) + [lut])
+        else:
+            rows = []
+            for t in range(n_macro_steps):
+                d = None if draws is None else draws[t]
+                if mesh is not None:
+                    d = shard_macro_draws(d or draw(), n_total, mesh, agent.pi_dim, crn)
+                # The planner's seeds: this chunk's seed and the macro step
+                # (and the rank, under a mesh).
+                seed_path = None if generator is None else (generator.initial_seed(), t)
+                if seed_path and mesh is not None and mesh.world > 1:
+                    seed_path += (mesh.rank,)
+                (env, qstate), tally = macro_step((env, qstate), d, generator, seed_path)
+                rows.append(tally)
+            tallies = torch.stack(rows)
         scores = env.score
         if mesh is not None:  # sums over all envs; the fleet-mean score too
             tallies[:, 5] *= env.batch

@@ -44,7 +44,7 @@ import torch
 from deep_active_inference_mc_torch.envs import dsprites as env_lib
 from deep_active_inference_mc_torch.infer.precision import PrecisionState
 from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
-from deep_active_inference_mc_torch.train.loop import TrainState
+from deep_active_inference_mc_torch.train.loop import TrainState, load_optimizer_state
 from deep_active_inference_mc_torch.utils import convert
 
 _SNAPSHOT_SOURCES = ["models/networks.py", "train/losses.py", "train/loop.py"]
@@ -205,10 +205,9 @@ def _read(folder_chp: Path) -> Tuple[Path, Dict[str, Any]]:
     src = _source(Path(folder_chp).resolve())
     if src.name == EXPORT_FILE:
         return src, convert.load_export(src)
-    # Read onto the CPU: ``load_state_dict`` moves weights and moments to
-    # their params' device and leaves Adam's step counters on the CPU,
-    # where a fresh optimizer keeps them (on the card they would cost a
-    # host sync per parameter per step).
+    # Read onto the CPU: loading moves weights and moments to their params'
+    # device, and Adam's step counters to where a fresh optimizer keeps
+    # them (the card's for a capturable Adam, else the CPU).
     return src, torch.load(src, map_location="cpu", weights_only=True)
 
 
@@ -244,7 +243,7 @@ def load_all(folder_chp: Path, state: TrainState, generator: torch.Generator
             f"random stream cannot continue on {generator.device.type}")
     state.agent.load_state_dict(payload["agent"])
     for k, sd in payload.get("opt_states", {}).items():
-        state.opts[k].load_state_dict(sd)
+        load_optimizer_state(state.opts[k], sd)
     state.precision = PrecisionState(**{k: v.to(device) for k, v in payload["precision"].items()})
     env = env_lib.EnvState(**{k: v.to(device) for k, v in payload["env"].items()})
     if resumable or env.batch == state.env.batch:

@@ -197,7 +197,7 @@ def port_main():
         c.cfg, c.agent_dtype = cfg, str(agent.dtype).split(".")[-1]
         return "state"
 
-    def make_epoch_fn(cfg, lut, rounds, mesh=None):
+    def make_epoch_fn(cfg, lut, rounds, mesh=None, graphed=None):
         c = calls[-1]
         c.rounds = rounds
 

@@ -206,8 +206,9 @@ def test_train_round_on_card_launches_the_kernel_twice(cuda_device):
 @pytest.mark.cuda
 def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
     """A resumed run continues the CUDA generator's stream, with weights,
-    moments, precisions and envs on the card and Adam's step counters on
-    the CPU, as a fresh optimizer keeps them."""
+    moments, precisions and envs on the card and Adam's step counters
+    where a fresh optimizer keeps them (on the card: the Adams are
+    capturable there)."""
     cfg = Config(batch=4)
     gen = seeded_generator(cuda_device, 1)
     state = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen, cuda_device)
