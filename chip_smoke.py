@@ -51,10 +51,13 @@ Phases (any failure exits non-zero and prints no result):
      then one training round at batch 8 with injected noise: the three
      losses within 1e-4 and the three gradient norms within 1e-3
      (relative) of the CPU's.
-  6. the planner path at full width. (a) Planner mechanics on a
+  6. the planner path at full width, its search replaying one captured
+     iteration per iteration (``make_jit_planner``, the bucketed planner;
+     phases 8, 9, 13 and 14 plan so too). (a) Planner mechanics on a
      deterministic mock of the model: the same roots through the plain and
-     the bucketed planner on the CPU and on the card, every result field
-     and the tree bit-equal (index ops, scatter-add, ties, compaction).
+     the bucketed planner on the CPU and on the card, graphed and op by
+     op, every result field and the tree bit-equal (index ops,
+     scatter-add, ties, compaction).
      (b) The sweep CLI's ``main`` with ``--method mcts`` at 256 envs and the
      CLI's defaults (50 repeats, simulation depth 3, max_depth 16), depth
      cut to 3 macro steps: unfused, then ``--mcts_fused``. (c) The behaviour
@@ -63,9 +66,12 @@ Phases (any failure exits non-zero and prints no result):
      repeats), 256 envs, fused: plain and bucketed. (e) One search on the
      real agent, B = 8, 4 repeats, injected noise, TF32 off, card against
      CPU. Every plan is checked (scores finite, actions in range, lengths
-     <= max_depth, repeats_done <= budget); each run prints ms per macro
-     step, plans/s, ms per planner iteration, repeats_done, depth_capped,
-     peak memory and K1's launches, which must equal the macro steps that
+     <= max_depth, repeats_done <= budget), and so is that it went through
+     its planner's graphs (a capture or replays; the run's plans replayed
+     at least once), here and in phases 8, 9, 11, 13 and 14; each run
+     prints ms per macro step, plans/s, ms per planner iteration,
+     repeats_done, depth_capped, peak memory, the planner's graph captures
+     and replays, and K1's launches, which must equal the macro steps that
      planned.
   8. MCTS-visit distillation at full width: the distillation CLI on phase
      4's checkpoint at its defaults (256 envs, 100 repeats, expand_k 4,
@@ -140,7 +146,9 @@ Phases (any failure exits non-zero and prints no result):
      the readings.
  15. graphs: phases 3, 4 and 14 (and the sweeps and rounds of 8, 11 and
      13) run their hot loops as captured CUDA graphs, the port's
-     counterpart of the JAX package's jitted scans (``utils/graphs.py``).
+     counterpart of the JAX package's jitted scans (``utils/graphs.py``),
+     and the planners of 6, 8, 9, 13 and 14 replay one captured search
+     iteration per iteration, the counterpart of its ``while_loop``.
      Here each graphed path is held against its eager body from one seed.
      (a) The bench's env-step run, 4096 envs x 256 steps: the state and
      checksum bit-equal, K1's launches equal; env steps/s in turns;
@@ -157,6 +165,18 @@ Phases (any failure exits non-zero and prints no result):
      counts equal, the largest weight difference, ms/round of 5 more
      epochs each in turns. (d) K1's launches equal on every path. (e)
      The G and training keys of the bench, eager and graphed in turns.
+     (f) The planner on the committed flagship, graphed and op by op from
+     one seed: one plan at the reference budget (300 repeats, fused) at
+     256 envs, plain then bucketed, at 32 (the bucket floor) and at 1; one
+     at the CLI's defaults (50 repeats, max_depth 16) unfused at expand_k
+     4; the demo's ``mcts`` at batch 1 (``--headless 100`` at 300 repeats,
+     then 10 host ticks that collect the paths); one distillation collect
+     (2 decisions). With cuDNN's deterministic algorithms every result
+     field (the paths too), the bucket traces, the demo's score trace, the
+     collect's records and K1's launches equal; with PyTorch's defaults
+     each plan timed in turns: ms per iteration, plans/s, graphs captured,
+     peak memory; the demo's frames/s; what the graph's max_depth walks
+     cost (a captured walk of 1 and of 16 steps).
  16. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
@@ -170,6 +190,7 @@ in [0, 1], the traversal's decoder on the card) and counts its calls.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -182,6 +203,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -842,9 +864,11 @@ class MockPlannerModel:
 
     pi_dim = 4
     S_DIM = 6
+    s_dim = S_DIM
 
     def __init__(self, torch, device, ties: bool = False):
         self.torch = torch
+        self.dtype = torch.float32
         self.pi_one_hot = torch.eye(self.pi_dim, device=device)
         self.w_G = [-0.5 + 1.3 * j / (self.S_DIM - 1) for j in range(self.S_DIM)]
         # The tables are made on the CPU and moved, as weights are: a card
@@ -862,6 +886,20 @@ class MockPlannerModel:
 
     def encode(self, frames):  # "frames" are already states
         return frames, None
+
+    # What a graphed search reads of an agent: the draws it makes ahead
+    # (which the model ignores) and the tensors its graph depends on.
+    @property
+    def mid(self):
+        def draw_masks(rows, generator, device):
+            return [self.torch.rand((rows, 8), generator=generator, device=device) < 0.5]
+        return types.SimpleNamespace(draw_masks=draw_masks)
+
+    def parameters(self):
+        return iter(())
+
+    def buffers(self):
+        return iter((self.pi_one_hot, self.c_A, self.d_A))
 
     def _q_pi(self, s):
         q = s[:, :self.pi_dim] * s[:, :self.pi_dim] + 0.1
@@ -912,8 +950,9 @@ MECHANICS_CASES = {
 
 
 def phase_planner_mechanics(torch, dev) -> None:
-    """The plain and the bucketed planner on the mock model, card against
-    CPU: every result field, the tree and the bucket traces equal."""
+    """The plain and the bucketed planner on the mock model, card (graphed,
+    then op by op) against CPU: every result field, the tree and the
+    bucket traces equal."""
     from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 
     for name, (fields, B, check_every, min_bucket, ties) in MECHANICS_CASES.items():
@@ -937,32 +976,40 @@ def phase_planner_mechanics(torch, dev) -> None:
                     check(bool((acts[:, 0] == 0).all() and (leaf == 1).all()),
                           f"planner mechanics: argmax on {d.type} did not take the first of "
                           f"tied maxima")
-                plain = mcts_lib.active_inference_mcts(model, roots.to(d), p, (7,),
-                                                       return_tree=True)
-                plan = mcts_lib.make_bucketed_planner(model, p, check_every, min_bucket)
-                bucketed = plan(roots.to(d), (7,))
-            runs[d.type] = (plain, bucketed, list(plan.bucket_trace), list(plan.schedule))
+                # The card's default is graphed; op by op beside it.
+                for graphed in ((None,) if d.type == "cpu" else (None, False)):
+                    plain = mcts_lib.active_inference_mcts(model, roots.to(d), p, (7,),
+                                                           return_tree=True, graphed=graphed)
+                    plan = mcts_lib.make_bucketed_planner(model, p, check_every, min_bucket,
+                                                          graphed=graphed)
+                    bucketed = plan(roots.to(d), (7,))
+                    runs[d.type if graphed is None else "card op by op"] = (
+                        plain, bucketed, list(plan.bucket_trace), list(plan.schedule))
         cpu_plain, cpu_bucketed, cpu_trace, cpu_schedule = runs["cpu"]
+        for mode in (dev.type, "card op by op"):
+            plain, bucketed, trace, schedule = runs[mode]
+            label = "card graphed" if mode == dev.type else mode
+            for f in RESULT_FIELDS:
+                want = getattr(cpu_plain, f)
+                for what, got in ((f"{label} plain", getattr(plain, f)),
+                                  (f"{label} bucketed", getattr(bucketed, f)),
+                                  ("cpu bucketed", getattr(cpu_bucketed, f))):
+                    check(torch.equal(got.cpu(), want),
+                          f"planner mechanics {name}: {what} {f} differs from the CPU's plain")
+            for f in TREE_FIELDS:
+                check(torch.equal(getattr(plain.tree, f).cpu(), getattr(cpu_plain.tree, f)),
+                      f"planner mechanics {name}: the {label} tree.{f} differs from the CPU's")
+            check(trace == cpu_trace and schedule == cpu_schedule,
+                  f"planner mechanics {name}: bucket trace {trace} at {schedule} {label}, "
+                  f"{cpu_trace} at {cpu_schedule} on the CPU")
         plain, bucketed, trace, schedule = runs[dev.type]
-        for f in RESULT_FIELDS:
-            want = getattr(cpu_plain, f)
-            for label, got in (("card plain", getattr(plain, f)),
-                               ("card bucketed", getattr(bucketed, f)),
-                               ("cpu bucketed", getattr(cpu_bucketed, f))):
-                check(torch.equal(got.cpu(), want),
-                      f"planner mechanics {name}: {label} {f} differs from the CPU's plain")
-        for f in TREE_FIELDS:
-            check(torch.equal(getattr(plain.tree, f).cpu(), getattr(cpu_plain.tree, f)),
-                  f"planner mechanics {name}: the card's tree.{f} differs from the CPU's")
-        check(trace == cpu_trace and schedule == cpu_schedule,
-              f"planner mechanics {name}: bucket trace {trace} at {schedule} on the card, "
-              f"{cpu_trace} at {cpu_schedule} on the CPU")
         if name in ("compaction", "prior", "expand_k2"):
             check(len(trace) > 1, f"planner mechanics {name}: no compaction fired ({trace})")
         if name == "depth_cap":
             check(int(plain.depth_capped.sum()) > 0, "planner mechanics: no walk hit the cap")
         reps = cpu_plain.repeats_done
-        print(f"[planner mechanics] {name}: {B} envs, card == CPU and bucketed == plain in "
+        print(f"[planner mechanics] {name}: {B} envs, card (graphed and op by op) == CPU and "
+              f"bucketed == plain in "
               f"{len(RESULT_FIELDS)} result fields and {len(TREE_FIELDS)} tree fields, bit for "
               f"bit; repeats_done {int(reps.min())}-{int(reps.max())}, depth_capped "
               f"{int(cpu_plain.depth_capped.sum())}, buckets {trace} at iterations {schedule}",
@@ -987,48 +1034,83 @@ def check_plan(torch, tag: str, res, p) -> None:
 
 
 @contextlib.contextmanager
-def recorded_plans(torch, log: list):
+def recorded_plans(torch, log: list, require_graphs: bool = True):
     """While the block runs, every plan of the port's two planners is
     checked and appended to ``log`` as (envs, seconds, result, buckets);
-    the seconds are host time around the plan, synchronized on both sides."""
+    the seconds are host time around the plan, synchronized on both sides.
+    Yields a Counter of the planners' graph ``captures`` and ``replays``
+    in the block. With ``require_graphs`` every plan on the card must have
+    gone through its planner's graphs (a capture or a replay), the block's
+    plans must have replayed at least once, and a one-shot
+    ``active_inference_mcts`` (op by op by default) fails."""
     from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 
-    def timed(plan, p):
+    counts = collections.Counter()
+
+    def timed(plan, p, frames, graphs=None):
+        before = (graphs.captures, graphs.replays) if graphs is not None else (0, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = plan()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        check_plan(torch, f"plan {len(log)}", res, p)
+        tag = f"plan {len(log)}"
+        check_plan(torch, tag, res, p)
+        if graphs is not None:
+            counts["captures"] += graphs.captures - before[0]
+            counts["replays"] += graphs.replays - before[1]
+            if require_graphs:
+                check(graphs.captures + graphs.replays > sum(before) or not frames.is_cuda,
+                      f"{tag}: a planner built with the entry point's defaults ran op by op "
+                      f"on the card")
         return res, dt
 
     plain = mcts_lib.active_inference_mcts
+    make_jit = mcts_lib.make_jit_planner
     make_bucketed = mcts_lib.make_bucketed_planner
 
     def plain_recorded(agent, frames, p, *a, **kw):
-        res, dt = timed(lambda: plain(agent, frames, p, *a, **kw), p)
+        check(not require_graphs, "a path planned through the one-shot active_inference_mcts "
+              "where a graphed planner was expected")
+        res, dt = timed(lambda: plain(agent, frames, p, *a, **kw), p, frames)
         log.append((frames.shape[0], dt, res, None))
         return res
+
+    class JitRecorded:
+        def __init__(self, agent, p, *a, **kw):
+            self._plan, self._p = make_jit(agent, p, *a, **kw), p
+
+        def __call__(self, frames, seed_path=None, draws=None):
+            res, dt = timed(lambda: self._plan(frames, seed_path, draws), self._p, frames,
+                            self._plan.graphs)
+            log.append((frames.shape[0], dt, res, None))
+            return res
+
+        def __getattr__(self, name):  # graphs
+            return getattr(self._plan, name)
 
     class BucketedRecorded:
         def __init__(self, agent, p, *a, **kw):
             self._plan, self._p = make_bucketed(agent, p, *a, **kw), p
 
         def __call__(self, frames, seed_path):
-            res, dt = timed(lambda: self._plan(frames, seed_path), self._p)
+            res, dt = timed(lambda: self._plan(frames, seed_path), self._p, frames,
+                            self._plan.graphs)
             log.append((frames.shape[0], dt, res, list(self._plan.bucket_trace)))
             return res
 
         def __getattr__(self, name):  # bucket_trace, schedule
             return getattr(self._plan, name)
 
-    with patched(mcts_lib, active_inference_mcts=plain_recorded,
+    with patched(mcts_lib, active_inference_mcts=plain_recorded, make_jit_planner=JitRecorded,
                  make_bucketed_planner=BucketedRecorded):
-        yield
+        yield counts
+    if require_graphs and log:
+        check(counts["replays"] > 0, f"{len(log)} plans replayed no graph ({dict(counts)})")
 
 
 def report_plans(torch, tag: str, log: list, envs: int, macro: int, wall: float, launches: dict,
-                 smi: str, repeats: int = MCTS_REPEATS) -> None:
+                 smi: str, repeats: int = MCTS_REPEATS, graphs: dict | None = None) -> None:
     reps = torch.cat([r.repeats_done for _, _, r, _ in log]).double()
     capped = sum(int(r.depth_capped.sum()) for _, _, r, _ in log)
     lengths = torch.cat([r.lengths for _, _, r, _ in log]).double()
@@ -1042,8 +1124,8 @@ def report_plans(torch, tag: str, log: list, envs: int, macro: int, wall: float,
           f"{plan_s:.4f}s, {plan_s / iters * 1e3:.3f} ms per planner iteration ({iters} "
           f"iterations); repeats_done mean {reps.mean():.2f} max {int(reps.max())}, "
           f"depth_capped total {capped}, plan length mean {lengths.mean():.2f}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches {launches} "
-          f"[{smi}]", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches {launches}, "
+          f"planner graphs {dict(graphs or {})} [{smi}]", flush=True)
     traces = [tr for _, _, _, tr in log if tr is not None]
     if traces:
         print(f"[mcts] {tag}: bucket traces {traces}", flush=True)
@@ -1072,7 +1154,7 @@ def phase_mcts_sweeps(torch, smi: str) -> dict:
         log = []
         torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
-        with recorded_plans(torch, log):
+        with recorded_plans(torch, log) as graph_counts:
             out = sweep_app.main(mcts + ["--envs", str(envs), "--macro", str(macro)] + flags)
         launches = dict(LAUNCHES)
         check(bool(torch.isfinite(out["scores"]).all()), f"{tag}: non-finite scores")
@@ -1088,7 +1170,8 @@ def phase_mcts_sweeps(torch, smi: str) -> dict:
         if "bucket_traces" in out:
             check(out["bucket_traces"] == [tr for _, _, _, tr in log],
                   f"{tag}: the sweep's bucket traces are not the planner's")
-        report_plans(torch, tag, log, envs, macro, out["wall"], launches, smi)
+        report_plans(torch, tag, log, envs, macro, out["wall"], launches, smi,
+                     graphs=graph_counts)
         out_launches[f"sweep_{tag}"] = launches
     return out_launches
 
@@ -1117,8 +1200,8 @@ def phase_reference_budget(torch, dev, smi: str) -> None:
     p = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
                             fused_eval=True)
     bucketed = mcts_lib.make_bucketed_planner(agent, p)  # the CLI's cadence: 16, 32
-    planners = {"plain": lambda: mcts_lib.active_inference_mcts(agent, frames, p, (0,)),
-                "bucketed": lambda: bucketed(frames, (0,))}
+    plain = mcts_lib.make_jit_planner(agent, p)
+    planners = {"plain": lambda: plain(frames, (0,)), "bucketed": lambda: bucketed(frames, (0,))}
     for tag, plan in planners.items():
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -1130,12 +1213,14 @@ def phase_reference_budget(torch, dev, smi: str) -> None:
         reps = res.repeats_done.double()
         trace = f", buckets {bucketed.bucket_trace} at {bucketed.schedule}" if tag == "bucketed" \
             else ""
+        graphs = (bucketed if tag == "bucketed" else plain).graphs
         print(f"[mcts] reference budget ({REF_BUDGET} repeats, fused, float32), {tag}: "
               f"{MCTS_ENVS} envs, one plan in {dt:.4f}s, plans/s {MCTS_ENVS / dt:.2f}, "
               f"{dt / min(int(reps.max()) + 1, REF_BUDGET) * 1e3:.3f} ms per iteration; "
               f"repeats_done mean {reps.mean():.2f} max {int(reps.max())}, depth_capped total "
               f"{int(res.depth_capped.sum())}, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB{trace} [{smi}]", flush=True)
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB{trace}, graphs captured "
+              f"{graphs.captures} (capture included) [{smi}]", flush=True)
 
 
 def phase_search_card_vs_cpu(torch, dev) -> None:
@@ -1181,7 +1266,8 @@ def phase_search_card_vs_cpu(torch, dev) -> None:
     defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     got = mcts_lib.active_inference_mcts(agent_gpu, frames.to(dev), p,
-                                         draws=to_device(draws, dev), return_tree=True)
+                                         draws=to_device(draws, dev), return_tree=True,
+                                         graphed=True)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
     check_plan(torch, "search card-vs-cpu", got, p)
     check(int(clear.sum()) >= B // 2, f"search card-vs-cpu: only {int(clear.sum())} of {B} "
@@ -1607,14 +1693,14 @@ def phase_bf16(torch, dev, smi: str, f32_ms_macro: float, f32_ms_round: list,
     log = []
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    with recorded_plans(torch, log):
+    with recorded_plans(torch, log) as graph_counts:
         out = sweep_app.main(mcts + ["--macro", str(MCTS_MACRO)])
     runs["sweep_mcts_fused_bf16"] = dict(LAUNCHES)
     check(bool(torch.isfinite(out["scores"]).all()), "bf16 mcts: non-finite scores")
     check(len(log) == MCTS_MACRO and runs["sweep_mcts_fused_bf16"].get("render", 0) == MCTS_MACRO,
           "bf16 mcts: plans or K1 launches")
     report_plans(torch, "mcts_fused_bf16", log, MCTS_ENVS, MCTS_MACRO, out["wall"],
-                 runs["sweep_mcts_fused_bf16"], smi)
+                 runs["sweep_mcts_fused_bf16"], smi, graphs=graph_counts)
 
     # (d) one short distillation run on phase 4's checkpoint.
     torch.cuda.reset_peak_memory_stats()
@@ -2012,7 +2098,8 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
     p = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
                             fused_eval=True)
     bucketed = mcts_lib.make_bucketed_planner(agent, p)
-    for tag, plan in (("plain", lambda: mcts_lib.active_inference_mcts(agent, frames, p, (0,))),
+    plain = mcts_lib.make_jit_planner(agent, p)
+    for tag, plan in (("plain", lambda: plain(frames, (0,))),
                       ("bucketed", lambda: bucketed(frames, (0,)))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2035,7 +2122,7 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
     # (d) the ladder's best configuration on the trained prior, depth cut.
     log = []
     LAUNCHES.clear()
-    with recorded_plans(torch, log):
+    with recorded_plans(torch, log) as graph_counts:
         out = sweep_app.main(["-n", str(ROOT / FLAGSHIP), "--seed", "0", "--jumps", str(JUMPS),
                               "--envs", str(FLAGSHIP_QUEUE_ENVS), "--macro",
                               str(FLAGSHIP_QUEUE_MACRO), *MCTS_LADDER_FLAGS, "--mcts_bucketed"])
@@ -2046,7 +2133,8 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
     compactions = sum(len(tr) - 1 for _, _, _, tr in log)
     check(compactions >= 1, "flagship bucketed queue: no compaction under the trained prior")
     report_plans(torch, f"flagship bucketed queue C=2 ({REF_BUDGET} repeats, fused, bf16)", log,
-                 FLAGSHIP_QUEUE_ENVS, FLAGSHIP_QUEUE_MACRO, out["wall"], launches, smi, REF_BUDGET)
+                 FLAGSHIP_QUEUE_ENVS, FLAGSHIP_QUEUE_MACRO, out["wall"], launches, smi, REF_BUDGET,
+                 graphs=graph_counts)
     print(f"[flagship] bucketed queue: {compactions} compactions over {len(log)} plans; score "
           f"{out['score_mean']:+.4f} +- {out['score_sem']:.4f} after {FLAGSHIP_QUEUE_MACRO} "
           f"macro steps", flush=True)
@@ -2509,6 +2597,233 @@ def graphs_bench_keys(torch, dev, smi: str) -> dict:
     return readings
 
 
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms for the block: with its defaults
+    the decoder's transposed convolutions sum with atomics, so G differs
+    eager against eager in its last bits."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def same_results(torch, tag: str, got, want) -> None:
+    """Every MCTSResult field bit-equal, the paths too where collected."""
+    for f in RESULT_FIELDS + ("all_paths", "all_paths_G"):
+        a, b = getattr(got, f), getattr(want, f)
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+              f"{tag}: {f} differs graphed against op by op")
+
+
+def timed_plan(torch, plan, frames, seed_path):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = plan(frames, seed_path)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def plan_iterations(res, p) -> int:
+    """Iterations a plan ran: its slowest env's, and one more to see it."""
+    n_iters = -(-p.repeats // p.expand_k)
+    return min(-(-int(res.repeats_done.max()) // p.expand_k) + 1, n_iters)
+
+
+def graphs_planner_turns(torch, smi: str, tag: str, make, frames, p) -> dict:
+    """One plan from one seed, op by op and graphed (``make(graphed)``):
+    with cuDNN's deterministic algorithms every result field and the
+    bucket traces bit-equal; then with PyTorch's defaults in turns, graphed
+    (the capture), op by op, graphed (replays only), each timed. Returns
+    the ms per iteration by mode."""
+    B = frames.shape[0]
+    with cudnn_deterministic(torch):
+        eager, graphed = make(False), make(None)
+        want, _ = timed_plan(torch, eager, frames, (0,))
+        got, _ = timed_plan(torch, graphed, frames, (0,))
+    same_results(torch, f"planner {tag}", got, want)
+    traces = ""
+    if hasattr(eager, "bucket_trace"):
+        check(eager.bucket_trace == graphed.bucket_trace and eager.schedule == graphed.schedule,
+              f"planner {tag}: buckets {graphed.bucket_trace} at {graphed.schedule} graphed, "
+              f"{eager.bucket_trace} at {eager.schedule} op by op")
+        traces = f", buckets {graphed.bucket_trace} at iterations {graphed.schedule}"
+    iters = plan_iterations(want, p)
+    times, peaks = {"graphed": [], "eager": []}, {}
+    for mode, plan in (("graphed", graphed), ("eager", eager), ("graphed", graphed)):
+        torch.cuda.reset_peak_memory_stats()
+        res, dt = timed_plan(torch, plan, frames, (0,))
+        check_plan(torch, f"planner {tag} {mode}", res, p)
+        times[mode].append(dt)
+        peaks[mode] = max(peaks.get(mode, 0), torch.cuda.max_memory_allocated())
+    ms = {"eager": times["eager"][0] / iters * 1e3, "graphed": times["graphed"][1] / iters * 1e3}
+    reps = want.repeats_done.double()
+    print(f"[graphs] (f) planner, {tag}: {B} envs, every result field bit-equal graphed and op "
+          f"by op (cuDNN deterministic){traces}; repeats_done mean {reps.mean():.2f} max "
+          f"{int(reps.max())}, {iters} iterations; with the defaults ms per iteration eager "
+          f"{ms['eager']:.3f}, graphed {ms['graphed']:.3f} ({ms['eager'] / ms['graphed']:.2f} x; "
+          f"the capture's plan {times['graphed'][0] / iters * 1e3:.3f}), plans/s eager "
+          f"{B / times['eager'][0]:.2f}, graphed {B / times['graphed'][1]:.2f}; graphs captured "
+          f"{graphed.graphs.captures}, held {graphed.graphs.count}; peak memory eager "
+          f"{peaks['eager'] / 2 ** 20:.1f} MiB, graphed {peaks['graphed'] / 2 ** 20:.1f} MiB "
+          f"[{smi}]", flush=True)
+    return ms
+
+
+def graphs_walk_cost(torch, dev, smi: str, agent, frames, p) -> None:
+    """What the graph's max_depth walks cost: one selection walk of 1 and of
+    max_depth steps, each captured, on a tree 20 iterations deep, at 256,
+    32 and 1 envs; a plan's early iterations walk 120 steps more than the
+    eager ones (sum over i < 15 of 16 - (i + 1))."""
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+
+    extra = sum(p.max_depth - (i + 1) for i in range(p.max_depth - 1))
+    with torch.inference_mode():
+        carry = mcts_lib._init_search(agent, frames, p, (0,))
+        mcts_lib._run_search(agent, carry, p, 20)
+        for B in (frames.shape[0], 32, 1):
+            tree = dataclasses.replace(carry.tree, **{
+                f.name: getattr(carry.tree, f.name)[:B].clone()
+                for f in dataclasses.fields(carry.tree)})
+            ms = {}
+            for steps in (1, p.max_depth):
+                walk = lambda: mcts_lib._select(tree, p.C, False, p.max_depth, steps=steps)
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    walk()
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    walk()
+                ms[steps] = time_run_ms(torch, graph.replay, TIMING_REPS) / TIMING_REPS
+            per_step = (ms[p.max_depth] - ms[1]) / (p.max_depth - 1)
+            print(f"[graphs] (f) walk length, {B} envs: a captured walk of 1 step "
+                  f"{ms[1]:.4f} ms, of {p.max_depth} steps {ms[p.max_depth]:.4f} ms: "
+                  f"{per_step * 1e3:.2f} us per step, {extra} steps more per plan = "
+                  f"{extra * per_step:.3f} ms per plan [{smi}]", flush=True)
+
+
+def graphs_planner(torch, dev, smi: str) -> dict:
+    """(f) The planner, graphed against op by op from one seed, on the
+    committed flagship: one plan at the reference budget (300 repeats,
+    fused) at 256 envs, plain and bucketed, at 32 and at 1 env; one at the
+    CLI's defaults (50 repeats, max_depth 16) unfused at expand_k 4; the
+    demo's ``mcts`` at batch 1 (one headless round, then 10 host ticks,
+    whose plans collect the paths); one distillation collect (2 decisions
+    at the CLI's widths). Returns K1's launch counts of the graphed runs."""
+    from deep_active_inference_mc_torch.apps import demo as demo_app
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+    from deep_active_inference_mc_torch.train import distill as distill_lib
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
+
+    agent = sweep_app.build_agent(Config(), str(ROOT / FLAGSHIP), dev)
+    lut = raster.build_sprite_lut(dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    with torch.inference_mode():
+        frames = env_lib.render(lut, env_lib.randomize(env_lib.reset(g, MCTS_ENVS, dev), g))
+    ref = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
+                              fused_eval=True)
+    cli_k4 = mcts_lib.MCTSParams(repeats=MCTS_REPEATS, simulation_depth=3,
+                                 max_depth=MCTS_MAX_DEPTH, expand_k=4)
+    plain = lambda p: lambda graphed: mcts_lib.make_jit_planner(agent, p, graphed=graphed)
+    cases = (
+        ("plain, reference budget, fused", plain(ref), frames, ref),
+        ("bucketed, reference budget, fused", lambda graphed: mcts_lib.make_bucketed_planner(
+            agent, ref, graphed=graphed), frames, ref),
+        ("plain, reference budget, fused, the bucket floor", plain(ref), frames[:32], ref),
+        ("plain, reference budget, fused, the demo's batch", plain(ref), frames[:1], ref),
+        ("plain, the CLI's defaults, unfused, expand_k 4", plain(cli_k4), frames, cli_k4),
+    )
+    ms = {}
+    for tag, make, f, p in cases:
+        ms[tag] = graphs_planner_turns(torch, smi, tag, make, f, p)
+    graphs_walk_cost(torch, dev, smi, agent, frames, ref)
+
+    # The demo's mcts at batch 1: a headless round, then 10 host ticks.
+    args = demo_app.build_parser().parse_args(
+        ["--method", "mcts", "--repeats", str(DEMO_REPEATS), "--depth", "3"])
+    demo_runs, launches = {}, {}
+    for graphed in (False, None):
+        log = []
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        with cudnn_deterministic(torch), recorded_plans(torch, log, graphed is not False):
+            demo = demo_app.Demo(agent, args, graphed=graphed)
+            out = demo_app.run_headless(demo, demo_app.DURATION_OF_ROUND)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                demo.tick()
+            ticks_s = time.perf_counter() - t0
+        launches[graphed] = dict(LAUNCHES)
+        demo_runs[graphed] = (out, log, ticks_s, torch.cuda.max_memory_allocated(),
+                              demo.planners[False].graphs.captures
+                              + demo.planners[True].graphs.captures)
+    (e_out, e_log, e_ticks, e_peak, _), (g_out, g_log, g_ticks, g_peak, g_caps) = (
+        demo_runs[False], demo_runs[None])
+    check(torch.equal(e_out["trace"], g_out["trace"]),
+          "demo mcts: the score trace differs graphed against op by op")
+    check(len(e_log) == len(g_log) and launches[False] == launches[None],
+          f"demo mcts: {len(g_log)} plans and launches {launches[None]} graphed, {len(e_log)} "
+          f"and {launches[False]} op by op")
+    for i, ((_, _, a, _), (_, _, b, _)) in enumerate(zip(g_log, e_log)):
+        same_results(torch, f"demo mcts plan {i}", a, b)
+    paths = sum(r.all_paths is not None for _, _, r, _ in g_log)
+    check(paths >= 1, "demo mcts: no host tick planned (no paths collected)")
+    plan_ms = lambda log: sum(dt for _, dt, _, _ in log) / len(log) * 1e3
+    iters = lambda log: sum(plan_iterations(r, demo.mcts_params) for _, _, r, _ in log)
+    print(f"[graphs] (f) demo mcts, batch 1, {DEMO_REPEATS} repeats, the flagship (cuDNN "
+          f"deterministic): {len(g_log)} plans ({paths} collecting the paths) bit-equal graphed "
+          f"and op by op, the score trace and K1's launches ({launches[None]}) equal; frames/s "
+          f"of the round eager {e_out['fps']:.2f}, graphed {g_out['fps']:.2f} (its captures "
+          f"included); ms per plan eager {plan_ms(e_log):.1f}, graphed {plan_ms(g_log):.1f}; ms "
+          f"per iteration eager {sum(dt for _, dt, _, _ in e_log) / iters(e_log) * 1e3:.3f}, "
+          f"graphed {sum(dt for _, dt, _, _ in g_log) / iters(g_log) * 1e3:.3f}; 10 host ticks "
+          f"{e_ticks:.3f} s and {g_ticks:.3f} s; graphs captured {g_caps}; peak memory eager "
+          f"{e_peak / 2 ** 20:.1f} MiB, graphed {g_peak / 2 ** 20:.1f} MiB [{smi}]", flush=True)
+
+    # One distillation collect: 2 decisions at the CLI's widths.
+    cfg = Config(distill_macro=2)
+    collect = {}
+    for graphed in (False, None):
+        log = []
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        with cudnn_deterministic(torch), recorded_plans(torch, log, graphed is not False):
+            distiller = distill_lib.Distiller(agent, cfg, lut, graphed=graphed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            records = distiller.collect(seeded_generator(dev, 9))
+            torch.cuda.synchronize()
+            collect[graphed] = (records, log, time.perf_counter() - t0, dict(LAUNCHES),
+                                torch.cuda.max_memory_allocated(), distiller.planner.graphs)
+    (e_rec, e_log, e_s, e_l, e_peak, _), (g_rec, g_log, g_s, g_l, g_peak, g_graphs) = (
+        collect[False], collect[None])
+    check(all(torch.equal(a, b) for a, b in zip(e_rec, g_rec)) and e_l == g_l,
+          f"distill collect: records or K1's launches ({g_l} graphed, {e_l} op by op) differ")
+    for i, ((_, _, a, _), (_, _, b, _)) in enumerate(zip(g_log, e_log)):
+        same_results(torch, f"distill collect plan {i}", a, b)
+    p = distiller.mcts_params
+    it = lambda log: sum(plan_iterations(r, p) for _, _, r, _ in log)
+    print(f"[graphs] (f) distillation collect, {cfg.distill_envs} envs x {cfg.distill_macro} "
+          f"decisions, {cfg.distill_repeats} repeats, expand_k {cfg.distill_expand_k}, fused "
+          f"(cuDNN deterministic): records and {len(g_log)} plans bit-equal graphed and op by "
+          f"op, K1's launches {g_l}; ms per collect eager {e_s * 1e3:.1f}, graphed "
+          f"{g_s * 1e3:.1f} (its capture included); ms per iteration eager "
+          f"{sum(dt for _, dt, _, _ in e_log) / it(e_log) * 1e3:.2f}, graphed "
+          f"{sum(dt for _, dt, _, _ in g_log) / it(g_log) * 1e3:.2f}; graphs captured "
+          f"{g_graphs.captures}; peak memory eager {e_peak / 2 ** 30:.2f} GiB, graphed "
+          f"{g_peak / 2 ** 30:.2f} GiB [{smi}]", flush=True)
+    return {"graphs_demo_mcts": launches[None], "graphs_distill_collect": g_l}
+
+
 def phase_graphs(torch, dev, smi: str, args, phase3: dict) -> dict:
     """Each graphed path against its eager body on the card, from one seed.
     Returns K1's launch counts of the graphed runs."""
@@ -2518,6 +2833,7 @@ def phase_graphs(torch, dev, smi: str, args, phase3: dict) -> dict:
     for bf16 in (False, True):
         runs.update(graphs_rounds(torch, dev, smi, bf16))
     graphs_bench_keys(torch, dev, smi)
+    runs.update(graphs_planner(torch, dev, smi))
     print(f"[graphs] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
     return runs
 

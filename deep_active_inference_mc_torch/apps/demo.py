@@ -28,7 +28,11 @@ action draw of ``habit``/``ai``/``t1``/``t12`` from one uniform of
 (``seed``, tick). ``--headless N`` runs whole rounds through
 ``run_round``, which keeps the plan queue on the device and reads its
 length once per tick; on the same draws it gives the same score trace as
-the host-driven ``tick`` loop. ``-n`` loads a port checkpoint dir, a JAX
+the host-driven ``tick`` loop. The ``mcts`` controller plans with two
+``make_jit_planner``s, built once: one that collects the paths (the host
+tick's visit mask, as the JAX ``Demo``'s) and one that does not
+(``run_round``'s); on a card each replays one captured search iteration per
+iteration. ``-n`` loads a port checkpoint dir, a JAX
 one that holds ``torch_export.npz`` (``artifacts/run512/checkpoints``) or a
 JAX params ``.npz``; without it the agent is a seeded init. The default
 device is ``cuda``; ``--device cpu`` runs on the CPU. matplotlib (the
@@ -129,7 +133,8 @@ class DemoDraws:
 class Demo:
     """Controller + environment state machine, UI-independent."""
 
-    def __init__(self, agent, args, draws: Optional[DemoDraws] = None):
+    def __init__(self, agent, args, draws: Optional[DemoDraws] = None,
+                 graphed: Optional[bool] = None):
         self.agent = agent
         self.args = args
         self.device = next(agent.parameters()).device
@@ -154,6 +159,10 @@ class Demo:
             simulation_depth=args.depth, use_habit=not args.no_habit, use_means=True,
             fused_eval=getattr(args, "fused", False),
             using_prior_for_exploration=getattr(args, "prior_explore", False))
+        # The host tick's planner collects the paths (the visit mask);
+        # run_round's does not. ``graphed`` as make_jit_planner's.
+        self.planners = {cp: mcts_lib.make_jit_planner(agent, self.mcts_params, cp, graphed)
+                         for cp in (False, True)}
 
     # ------------------------------------------------------------------ UI
     def frame(self) -> np.ndarray:
@@ -188,9 +197,7 @@ class Demo:
             self._shown = {"choice": q_pi}
             return torch.where(idx < steps, pi, -1), torch.tensor(steps, device=self.device), None
         if self.method == "mcts":
-            res = mcts_lib.active_inference_mcts(
-                self.agent, o, self.mcts_params, seed_path=self.draws.plan_seed_path(t),
-                collect_paths=collect_paths)
+            res = self.planners[collect_paths](o, self.draws.plan_seed_path(t))
             path, length = res.actions[0], res.lengths[0]
             src = path[torch.clamp(idx // jumps, max=path.shape[0] - 1)]
             return torch.where(idx // jumps < length, src, -1), length * jumps, res
@@ -488,7 +495,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None):
+def main(argv=None, graphed: Optional[bool] = None):
+    """``graphed``: the planner's (``Demo``'s); None replays its search
+    iteration as a graph on a card."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     compcache.enable_persistent_cache()
@@ -497,7 +506,7 @@ def main(argv=None):
         print(f"Loaded checkpoint from {args.network}")
     else:
         print("No checkpoint given (-n); using untrained weights.")
-    demo = Demo(agent, args)
+    demo = Demo(agent, args, graphed=graphed)
     if args.record_ref:
         run_record_ref(demo, args.duration, args.record_ref)
     elif args.record:

@@ -24,7 +24,8 @@ cards, and run on the CPU with ``--device cpu``); the ``ai``, ``t1``,
 ``t12``, ``habit``, ``random`` and ``expert`` scores equal the single-rank
 sweep's at the same seed (``train/sweep.py``). The bucketed planner runs on
 one rank. On a card without a mesh, every method but ``mcts`` replays one
-captured CUDA graph per macro step (``utils/graphs.py``); ``main(argv,
+captured CUDA graph per macro step (``utils/graphs.py``), and ``mcts`` (plain
+or bucketed) one per search iteration of its planner; ``main(argv,
 graphed=False)`` runs the same steps op by op, for comparison.
 """
 
@@ -180,7 +181,7 @@ def _sweep(mesh, args: argparse.Namespace, graphed: Optional[bool] = None) -> di
             agent, cfg, lut, seed=args.seed, n_envs=args.envs,
             n_macro_steps=args.macro, jumps=args.jumps, mcts_params=mcts_params,
             check_every=args.mcts_check_every, min_bucket=args.mcts_min_bucket,
-            plan_queue=args.plan_queue, queue_cap=args.queue_cap,
+            plan_queue=args.plan_queue, queue_cap=args.queue_cap, graphed=graphed,
         )
     else:
         out = sweep_lib.run_sweep(

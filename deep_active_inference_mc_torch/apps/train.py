@@ -209,7 +209,9 @@ def _train(mesh, cfg: Config, known: argparse.Namespace) -> dict:
     habit_fn = sweep_lib.make_sweep(
         eval_agent, cfg, lut, method="habit", n_macro_steps=cfg.sweep_steps, jumps=cfg.repeats)
 
-    distiller = Distiller(eval_agent, cfg, lut) if cfg.distill_every > 0 else None
+    distiller = None
+    if cfg.distill_every > 0:  # a mesh run's planner runs op by op
+        distiller = Distiller(eval_agent, cfg, lut, graphed=None if mesh is None else False)
 
     sweep_env = fixed_sweep_env(cfg, device)
     sweep_base = {}

@@ -25,7 +25,8 @@ around work that ends in ``torch.cuda.synchronize()``. The loops that
 ``bench.py`` runs as one compiled ``lax.scan`` (the env steps, G, the
 training epoch) replay one captured CUDA graph per step on a card
 (``utils/graphs.py``), each step's noise drawn eagerly in the eager loop's
-order; the planners run op by op. PyTorch's TF32 and cuDNN settings are
+order; the planners (``make_jit_planner`` as ``bench.py``'s, and the
+bucketed one) replay one captured search iteration per iteration. PyTorch's TF32 and cuDNN settings are
 left at their defaults, as the other entry points leave them, and printed.
 """
 
@@ -183,20 +184,23 @@ def bench_efe_rollouts(agent: ActiveInferenceAgent, lut: torch.Tensor,
 @torch.inference_mode()
 def bench_mcts_plans(agent: ActiveInferenceAgent, lut: torch.Tensor, repeats: int = 50,
                      fused: bool = False, reps: int = 3, expand_k: int = 1,
-                     batch: int = MCTS_BATCH):
+                     batch: int = MCTS_BATCH, graphed: Optional[bool] = None):
     """Batched array-MCTS planning throughput: full ``repeats``-expansion
     searches with depth-3 habit simulations, ``batch`` envs planning at
-    once. Returns (plans/s, depth-cap bind fraction: no-op expands per
-    search iteration from the max_depth=16 cap, mean repeats done)."""
+    once, on one ``make_jit_planner`` (``graphed`` as its: on a card the
+    search replays a captured iteration; the warm-up plan captures it).
+    Returns (plans/s, depth-cap bind fraction: no-op expands per search
+    iteration from the max_depth=16 cap, mean repeats done)."""
     o = _frames(lut, batch)
     p = mcts_lib.MCTSParams(repeats=repeats, simulation_depth=3, max_depth=16,
                             fused_eval=fused, expand_k=expand_k)
-    mcts_lib.active_inference_mcts(agent, o, p, seed_path=(1,))
+    planner = mcts_lib.make_jit_planner(agent, p, graphed=graphed)
+    planner(o, (1,))
     _sync(lut.device)
     t0 = time.perf_counter()
     capped = done = 0.0
     for i in range(reps):
-        res = mcts_lib.active_inference_mcts(agent, o, p, seed_path=(2 + i,))
+        res = planner(o, (2 + i,))
         capped += float(res.depth_capped.sum())
         done += float(res.repeats_done.sum())
     _sync(lut.device)
@@ -207,17 +211,17 @@ def bench_mcts_plans(agent: ActiveInferenceAgent, lut: torch.Tensor, repeats: in
 @torch.inference_mode()
 def bench_mcts_bucketed(agent: ActiveInferenceAgent, lut: torch.Tensor, repeats: int = 300,
                         reps: int = 3, check_every: int = 16, min_bucket: int = 32,
-                        B: int = 1024) -> float:
+                        B: int = 1024, graphed: Optional[bool] = None) -> float:
     """Reference-budget MCTS on the batch-compaction planner
-    (``plan.mcts.make_bucketed_planner``): decided envs retire at
-    iteration checkpoints and the stragglers re-pack into smaller buckets,
-    so iteration cost tracks the active env count. B = 1024 is the
-    deployed fleet width."""
+    (``plan.mcts.make_bucketed_planner``, ``graphed`` as its): decided envs
+    retire at iteration checkpoints and the stragglers re-pack into smaller
+    buckets, so iteration cost tracks the active env count. B = 1024 is
+    the deployed fleet width."""
     o = _frames(lut, B)
     p = mcts_lib.MCTSParams(repeats=repeats, simulation_depth=3, max_depth=16,
                             fused_eval=True)
     planner = mcts_lib.make_bucketed_planner(agent, p, check_every=check_every,
-                                             min_bucket=min_bucket)
+                                             min_bucket=min_bucket, graphed=graphed)
     # Two warm-ups: compaction points differ per seed, so the second pass
     # meets bucket sizes the first one missed.
     for k in (1, 101):

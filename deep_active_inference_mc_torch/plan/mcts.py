@@ -33,8 +33,21 @@ Where this differs from the JAX module, with the same results:
     (the counterpart of ``fold_in(k_loop, i)``), so a compacted search
     replays the same stream of seeds. All noise can be injected instead
     (``SearchDraws``).
-  - There is no ``make_jit_planner``: nothing is compiled, so
-    ``active_inference_mcts`` is the planner to call.
+
+The compiled planner (``make_jit_planner``, the counterpart of the JAX
+package's): on a card the search loop, the JAX module's ``lax.while_loop``,
+is one captured CUDA graph of one iteration, replayed until every env has
+decided (``utils/graphs.py``, ``Graphs.while_loop``). The graph's body is
+the eager iteration with a device iteration counter: the slots and the path
+rows come from index arithmetic on it, and the walks take ``max_depth``
+steps (the steps beyond a path's end change nothing). Each iteration's
+noise is drawn ahead by ``draw_iteration`` from the iteration's own
+generator, in the order the eager iteration draws it, so a graphed search
+gives the eager search's numbers. The plain planner keeps one graph per
+batch size, the bucketed one per bucket size, in one memory pool;
+initialization and the final walk run eagerly. ``graphed=False`` runs the
+iterations op by op, each drawing as it goes, its walks as long as the
+tree is deep.
 
 Everything runs under ``torch.inference_mode()``.
 """
@@ -42,7 +55,7 @@ Everything runs under ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,6 +64,7 @@ from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.models.networks import reparameterize
 from deep_active_inference_mc_torch.ops import math as m
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 from deep_active_inference_mc_torch.utils import random as rnd
 from deep_active_inference_mc_torch.utils.device import seeded_generator
 
@@ -134,7 +148,8 @@ class FusedDraws:
 class IterationDraws:
     """Injected noise of one iteration: ``expand`` and ``simulate``
     (unfused) or ``fused``; ``select`` is the walks' Gumbel noise
-    (expand_k, max_depth, B, A) when selection is sampled."""
+    (expand_k, max_depth, B, A) when selection is sampled. A graphed
+    search takes it whole, as ``draw_iteration`` gives it."""
 
     expand: Optional[efe.GDraws] = None
     simulate: Optional[efe.SimulateDraws] = None
@@ -206,6 +221,37 @@ def _draw_fused(agent, B: int, p: MCTSParams, generator, device) -> FusedDraws:
     masks = agent.mid.draw_masks(2 * n1 + n3, generator, device)
     normal = lambda rows: torch.randn((rows, agent.s_dim), generator=generator, device=device)
     return FusedDraws(rollout, masks, normal(n3), normal(n1), normal(n3))
+
+
+def draw_iteration(agent, p: MCTSParams, B: int, generator: torch.Generator,
+                   device) -> IterationDraws:
+    """All the noise one iteration over B envs consumes, drawn from
+    ``generator`` in the order the iteration draws it: the walks' Gumbel
+    noise, then the fused evaluator's, or the expand's (``crn``: one row set
+    for every action) and the simulation's, over expand_k * B leaves."""
+    rows, A = B * p.expand_k, agent.pi_dim
+    select = None
+    if not p.deterministic_selection:
+        select = rnd.gumbel((p.expand_k, p.max_depth, B, A), generator, device)
+    if p.fused_eval and p.use_means:
+        return IterationDraws(fused=_draw_fused(agent, rows, p, generator, device),
+                              select=select)
+    g_rows = (rows if p.crn else rows * A) * (1 if p.use_means else p.samples)
+    expand = efe.draw_G(agent, g_rows, generator, device, sampled=not p.use_means)
+    simulate = efe.draw_simulate(agent, rows * p.simulation_repeats, p.simulation_depth,
+                                 generator, device)
+    return IterationDraws(expand=expand, simulate=simulate, select=select)
+
+
+def _check_whole(d: IterationDraws, p: MCTSParams) -> IterationDraws:
+    """``d`` if it holds all of an iteration's noise, else raise: a graphed
+    iteration draws nothing itself."""
+    fused = p.fused_eval and p.use_means
+    whole = d.fused is not None if fused else d.expand is not None and d.simulate is not None
+    if not whole or (not p.deterministic_selection and d.select is None):
+        raise ValueError("a graphed search takes each iteration's whole noise "
+                         "(draw_iteration's IterationDraws)")
+    return d
 
 
 def _fused_expand_sim(agent: ActiveInferenceAgent, leaf_s: torch.Tensor, p: MCTSParams,
@@ -387,6 +433,8 @@ class SearchCarry:
     habit_action: torch.Tensor  # (B,) phase-A habit action
     root_Qpi: torch.Tensor  # (B, A) habit prior at the root
     seed_path: Optional[Tuple[int, ...]]  # None: every draw is injected
+    paths_buf: Optional[torch.Tensor] = None  # (R, B, max_depth) selection paths
+    paths_G_buf: Optional[torch.Tensor] = None  # (R, B) simulation G per expansion
 
 
 def _budget(p: MCTSParams, A: int) -> Tuple[int, int, int]:
@@ -464,27 +512,6 @@ def _init_search(agent: ActiveInferenceAgent, frames: torch.Tensor, p: MCTSParam
                        habit_action=habit_action, root_Qpi=root_Qpi, seed_path=seed_path)
 
 
-class _HostCopy:
-    """A tensor on its way to the host. On a card the copy is enqueued now,
-    into pinned memory, and ``read`` waits for it alone: work enqueued after
-    it does not hold the reader up."""
-
-    def __init__(self, x: torch.Tensor):
-        self._event = None
-        if x.is_cuda:
-            self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            self._host.copy_(x, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = x.clone()
-
-    def read(self) -> torch.Tensor:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host
-
-
 def _evaluate(agent, leaf_s, p: MCTSParams, gen, d: Optional[IterationDraws]):
     """Expand and simulate ``leaf_s`` (rows, s_dim): (G_leaf (rows, A),
     ps_next (rows, A, s_dim), G_sim (rows,), Qpi_leaf (rows, A))."""
@@ -519,21 +546,50 @@ def _backprop_targets(nodes, acts, active, pad_row: int):
     return valid, (b_t, torch.where(valid, nodes, pad_row), torch.where(valid, acts, 0))
 
 
-def _seed_leaf(tree: _Tree, leaf, mask, base: int, G_leaf, ps_next, Qpi_leaf):
+Step = Union[int, torch.Tensor]  # an iteration: a host int, or 0-d int64 on the device
+
+
+def _span(start: Step, n: int, device) -> torch.Tensor:
+    """The indices start .. start + n - 1 on ``device``."""
+    if isinstance(start, torch.Tensor):
+        return start + torch.arange(n, device=device)
+    return torch.arange(start, start + n, device=device)
+
+
+def _walk_steps(p: MCTSParams, i: Step) -> int:
+    """Steps of iteration ``i``'s walks: after i * expand_k expansions no
+    path is longer than i * expand_k + 1; a device ``i`` walks max_depth
+    (the steps beyond a path's end change nothing)."""
+    if isinstance(i, torch.Tensor):
+        return p.max_depth
+    return min(p.max_depth, i * p.expand_k + 1)
+
+
+def _put_row(buf: torch.Tensor, row: Step, x: torch.Tensor) -> None:
+    """``buf[row] = x``."""
+    buf.index_copy_(0, _span(row, 1, buf.device), x.unsqueeze(0))
+
+
+def _row(buf: torch.Tensor, row: Step) -> torch.Tensor:
+    return buf.index_select(0, _span(row, 1, buf.device))[0]
+
+
+def _seed_leaf(tree: _Tree, leaf, mask, base: Step, G_leaf, ps_next, Qpi_leaf):
     """Expand ``leaf`` where ``mask``: seed W = -G and N = 1 on its edges,
     give it the child slots base..base+A-1 and their states, set its prior."""
     B, _, A = tree.W.shape
     bidx = torch.arange(B, device=leaf.device)
+    slots = _span(base, A, leaf.device)
     tree.W[bidx, leaf] -= torch.where(mask, G_leaf, 0.0)
     tree.N[bidx, leaf] += mask.to(tree.N.dtype)
-    child_ids = torch.arange(base, base + A, device=leaf.device).expand(B, A)
-    tree.children[bidx, leaf] = torch.where(mask, child_ids, tree.children[bidx, leaf])
+    tree.children[bidx, leaf] = torch.where(mask, slots.expand(B, A),
+                                            tree.children[bidx, leaf])
     tree.Qpi[bidx, leaf] = torch.where(mask, Qpi_leaf, tree.Qpi[bidx, leaf])
-    slots = tree.s[:, base:base + A]
-    tree.s[:, base:base + A] = torch.where(mask[:, :, None], ps_next, slots)
+    tree.s.index_copy_(1, slots, torch.where(mask[:, :, None], ps_next,
+                                             tree.s.index_select(1, slots)))
 
 
-def _iteration(agent, tree: _Tree, p: MCTSParams, i: int, gen, d, paths_buf, paths_G_buf):
+def _iteration(agent, tree: _Tree, p: MCTSParams, i: Step, gen, d, paths_buf, paths_G_buf):
     """One sequential iteration: select, expand, simulate, backpropagate.
     Every write is masked by ``~tree.done``."""
     B, N_max, A = tree.W.shape
@@ -542,9 +598,8 @@ def _iteration(agent, tree: _Tree, p: MCTSParams, i: int, gen, d, paths_buf, pat
     active = ~tree.done
     gumbel = _select_gumbel(p, B, A, gen, dev, d)
 
-    # After i expansions no path is longer than i + 1.
     nodes, acts, _, leaf = _select(
-        tree, p.C, p.using_prior_for_exploration, p.max_depth, steps=i + 1,
+        tree, p.C, p.using_prior_for_exploration, p.max_depth, steps=_walk_steps(p, i),
         gumbel=None if gumbel is None else gumbel[0])
 
     # A walk that hit the max_depth cap returns an internal node; expanding
@@ -567,13 +622,13 @@ def _iteration(agent, tree: _Tree, p: MCTSParams, i: int, gen, d, paths_buf, pat
                             + active * (p.simulation_depth * p.simulation_repeats))
     tree.depth_capped = tree.depth_capped + (active & ~is_true_leaf)
     if paths_buf is not None:
-        paths_buf[i] = torch.where(active[:, None], acts, -1)
+        _put_row(paths_buf, i, torch.where(active[:, None], acts, -1))
         # The JAX loop never runs an iteration with every env done.
-        paths_G_buf[i] = torch.where(active.any(), G_sim, paths_G_buf[i])
+        _put_row(paths_G_buf, i, torch.where(active.any(), G_sim, _row(paths_G_buf, i)))
     tree.done = _phase_b_done(tree, p)
 
 
-def _iteration_k(agent, tree: _Tree, p: MCTSParams, i: int, gen, d, paths_buf, paths_G_buf):
+def _iteration_k(agent, tree: _Tree, p: MCTSParams, i: Step, gen, d, paths_buf, paths_G_buf):
     """expand_k > 1: k virtual-loss selection walks, one k*B-batch G
     evaluation, k seed + backprop scatters. The dN half of backprop is
     applied at select time (the virtual visit) so that successive walks
@@ -588,7 +643,7 @@ def _iteration_k(agent, tree: _Tree, p: MCTSParams, i: int, gen, d, paths_buf, p
     walks = []
     for j in range(kx):
         nodes, acts, _, leaf = _select(
-            tree, p.C, p.using_prior_for_exploration, p.max_depth, steps=i * kx + 1,
+            tree, p.C, p.using_prior_for_exploration, p.max_depth, steps=_walk_steps(p, i),
             gumbel=None if gumbel is None else gumbel[j])
         valid, target = _backprop_targets(nodes, acts, active, N_max - 1)
         tree.N.index_put_(target, valid.to(tree.N.dtype), accumulate=True)
@@ -615,9 +670,10 @@ def _iteration_k(agent, tree: _Tree, p: MCTSParams, i: int, gen, d, paths_buf, p
                           accumulate=True)
         capped = capped + (active & ~is_true_leaf)
         if paths_buf is not None:
-            paths_buf[i * kx + j] = torch.where(active[:, None], acts, -1)
-            paths_G_buf[i * kx + j] = torch.where(active.any(), G_sim_a[j],
-                                                  paths_G_buf[i * kx + j])
+            row = i * kx + j
+            _put_row(paths_buf, row, torch.where(active[:, None], acts, -1))
+            _put_row(paths_G_buf, row, torch.where(active.any(), G_sim_a[j],
+                                                   _row(paths_G_buf, row)))
 
     tree.repeats_done = tree.repeats_done + kx * active
     tree.states_explored = (tree.states_explored
@@ -626,28 +682,64 @@ def _iteration_k(agent, tree: _Tree, p: MCTSParams, i: int, gen, d, paths_buf, p
     tree.done = _phase_b_done(tree, p)
 
 
-def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, i_end: int,
-                paths_buf: Optional[torch.Tensor] = None,
-                paths_G_buf: Optional[torch.Tensor] = None,
-                draws: Optional[Sequence[IterationDraws]] = None) -> SearchCarry:
-    """Advance the search, in place, until iteration ``i_end`` (clamped to
-    the repeat budget) or until every env has decided. The all-done flag
-    is read one iteration late (module docstring), so at most one no-op
-    iteration runs after the last decision. Returns ``carry``."""
-    tree = carry.tree
-    n_iters, _, _ = _budget(p, tree.W.shape[-1])
+def _search_step(agent, p: MCTSParams):
+    """The search loop's body: ((i, tree, paths_buf, paths_G_buf), (generator,
+    IterationDraws)) -> the state after iteration i, the tree updated in
+    place."""
     step = _iteration_k if p.expand_k > 1 else _iteration
+
+    def body(state, x):
+        i, tree, paths_buf, paths_G_buf = state
+        gen, d = x
+        step(agent, tree, p, i, gen, d, paths_buf, paths_G_buf)
+        return i + 1, tree, paths_buf, paths_G_buf
+
+    return body
+
+
+def _all_done(state) -> torch.Tensor:
+    return state[1].done.all()
+
+
+def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, i_end: int,
+                draws: Optional[Sequence[IterationDraws]] = None,
+                graphs: Optional[graphs_lib.Graphs] = None) -> SearchCarry:
+    """Advance the search until iteration ``i_end`` (clamped to the repeat
+    budget) or until every env has decided. The all-done flag is read one
+    iteration late (module docstring), so at most one no-op iteration runs
+    after the last decision. ``graphs``: replay one captured iteration per
+    iteration, each fed ``draw_iteration``'s noise (or the injected
+    ``draws[i]``, whole); the tree then lives in the graph's buffers, which
+    ``carry`` points at. None: op by op, the tree updated in place. Returns
+    ``carry``."""
+    tree = carry.tree
+    B, _, A = tree.W.shape
+    dev = tree.W.device
+    n_iters, _, _ = _budget(p, A)
     start = carry.i
-    flags = {}
-    for i in range(start, min(int(i_end), n_iters)):
-        if i > start and bool(flags.pop(i - 1).read()):
-            break
-        flags[i] = _HostCopy(tree.done.all())  # every env done before iteration i?
-        gen = _generator(carry.seed_path, tree.W.device, _ITER_STREAM, i)
-        step(agent, tree, p, i, gen, None if draws is None else draws[i],
-             paths_buf, paths_G_buf)
-        carry.i = i + 1
-    carry.done = tree.done
+    n = max(min(int(i_end), n_iters) - start, 0)
+
+    def inputs(i):
+        gen = _generator(carry.seed_path, dev, _ITER_STREAM, i)
+        d = None if draws is None else draws[i]
+        if graphs is None:
+            return gen, d
+        return None, draw_iteration(agent, p, B, gen, dev) if d is None else _check_whole(d, p)
+
+    xs = (inputs(i) for i in range(start, start + n))
+    body = _search_step(agent, p)
+    if graphs is None:
+        state = (start, tree, carry.paths_buf, carry.paths_G_buf)
+        state, ran = graphs_lib.eager_while_loop(body, state, xs, n, _all_done)
+    else:
+        state = (torch.full((), start, dtype=torch.long, device=dev), tree, carry.paths_buf,
+                 carry.paths_G_buf)
+        state, ran = graphs.while_loop(body, state, xs, n, _all_done,
+                                       deps=lambda: graphs_lib.module_deps(agent),
+                                       key=(p, agent.dtype))
+    _, carry.tree, carry.paths_buf, carry.paths_G_buf = state
+    carry.i = start + ran
+    carry.done = carry.tree.done
     return carry
 
 
@@ -664,8 +756,10 @@ def _finalize_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSPar
     actions, lengths = _action_selection(
         tree, p.max_depth, A, steps=carry.i * p.expand_k + 1,
         gumbel=None if p.deterministic_action else final_gumbel)
-    repeats_done = tree.repeats_done
-    states_explored = tree.states_explored
+    # Copies: the tree may live in a graph's buffers, which the next search
+    # overwrites.
+    repeats_done = tree.repeats_done.clone()
+    states_explored = tree.states_explored.clone()
     if p.use_habit:
         habit_path = torch.full_like(actions, -1)
         habit_path[:, 0] = carry.habit_action
@@ -675,17 +769,45 @@ def _finalize_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSPar
         states_explored = torch.where(carry.habit_done, 0, states_explored)
     return MCTSResult(
         actions=actions, lengths=lengths, repeats_done=repeats_done,
-        states_explored=states_explored, depth_capped=tree.depth_capped,
+        states_explored=states_explored, depth_capped=tree.depth_capped.clone(),
         root_N=tree.N[:, 0].clone(), root_Qpi=carry.root_Qpi,
         all_paths=None, all_paths_G=None, tree=None,
     )
+
+
+def _search(agent, frames: torch.Tensor, p: MCTSParams, seed_path, collect_paths: bool,
+            return_tree: bool, draws: Optional[SearchDraws],
+            graphs: Optional[graphs_lib.Graphs]) -> MCTSResult:
+    B, A = frames.shape[0], agent.pi_dim
+    n_iters, n_expansions, _ = _budget(p, A)
+    carry = _init_search(agent, frames, p, seed_path, draws)
+    if collect_paths:
+        carry.paths_buf = torch.full((n_expansions, B, p.max_depth), -1, dtype=torch.long,
+                                     device=frames.device)
+        carry.paths_G_buf = torch.zeros((n_expansions, B), device=frames.device)
+    carry = _run_search(agent, carry, p, n_iters, None if draws is None else draws.iterations,
+                        graphs)
+    res = _finalize_search(agent, carry, p, None if draws is None else draws.final_gumbel)
+    # Copies, as in _finalize_search.
+    tree_out = None
+    if return_tree:
+        tree_out = _Tree(**{f.name: getattr(carry.tree, f.name).clone()
+                            for f in dataclasses.fields(_Tree)})
+        tree_out.repeats_done, tree_out.states_explored = res.repeats_done, res.states_explored
+    paths = [None if x is None else x.clone() for x in (carry.paths_buf, carry.paths_G_buf)]
+    return res._replace(all_paths=paths[0], all_paths_G=paths[1], tree=tree_out)
+
+
+def _use_graphs(graphed: Optional[bool], frames: torch.Tensor) -> bool:
+    return frames.is_cuda if graphed is None else graphed
 
 
 @torch.inference_mode()
 def active_inference_mcts(agent: ActiveInferenceAgent, frames: torch.Tensor, p: MCTSParams,
                           seed_path: Optional[Sequence[int]] = None,
                           collect_paths: bool = False, return_tree: bool = False,
-                          draws: Optional[SearchDraws] = None) -> MCTSResult:
+                          draws: Optional[SearchDraws] = None,
+                          graphed: Optional[bool] = False) -> MCTSResult:
     """Batched planner entry point.
 
     Args:
@@ -695,23 +817,36 @@ def active_inference_mcts(agent: ActiveInferenceAgent, frames: torch.Tensor, p: 
       collect_paths: also return per-expansion selection paths + G (the
         demo's visit-density input; memory ~ R*B*max_depth).
       return_tree: also return the final tree arrays (tests, debugging).
+      graphed: False (the default): op by op. None (on a card) or True:
+        the search loop replays one captured iteration, in graphs of this
+        call's own, captured anew on every call; a caller that plans more
+        than once builds ``make_jit_planner``, which keeps its graphs across
+        calls. True on the CPU raises.
     """
-    B, A = frames.shape[0], agent.pi_dim
-    n_iters, n_expansions, _ = _budget(p, A)
-    carry = _init_search(agent, frames, p, seed_path, draws)
-    paths_buf = paths_G_buf = None
-    if collect_paths:
-        paths_buf = torch.full((n_expansions, B, p.max_depth), -1, dtype=torch.long,
-                               device=frames.device)
-        paths_G_buf = torch.zeros((n_expansions, B), device=frames.device)
-    carry = _run_search(agent, carry, p, n_iters, paths_buf, paths_G_buf,
-                        None if draws is None else draws.iterations)
-    res = _finalize_search(agent, carry, p, None if draws is None else draws.final_gumbel)
-    tree_out = None
-    if return_tree:
-        tree_out = dataclasses.replace(carry.tree, repeats_done=res.repeats_done,
-                                       states_explored=res.states_explored)
-    return res._replace(all_paths=paths_buf, all_paths_G=paths_G_buf, tree=tree_out)
+    graphs = graphs_lib.Graphs() if _use_graphs(graphed, frames) else None
+    return _search(agent, frames, p, seed_path, collect_paths, return_tree, draws, graphs)
+
+
+def make_jit_planner(agent: ActiveInferenceAgent, p: MCTSParams, collect_paths: bool = False,
+                     graphed: Optional[bool] = None):
+    """The planner for one agent and ``p``, the counterpart of the JAX
+    package's ``make_jit_planner``: ``plan(frames, seed_path=None,
+    draws=None) -> MCTSResult`` is ``active_inference_mcts`` with
+    ``collect_paths``, its search loop replayed from graphs it keeps across
+    calls (``plan.graphs``: one per batch size; module docstring).
+    ``graphed``: None, on a card; True raises on the CPU; False runs op by
+    op (a mesh's planner: gloo cannot be captured). The weights are read
+    where they live, so in-place updates need no new capture."""
+    graphs = graphs_lib.Graphs()
+
+    @torch.inference_mode()
+    def plan(frames: torch.Tensor, seed_path: Optional[Sequence[int]] = None,
+             draws: Optional[SearchDraws] = None) -> MCTSResult:
+        return _search(agent, frames, p, seed_path, collect_paths, False, draws,
+                       graphs if _use_graphs(graphed, frames) else None)
+
+    plan.graphs = graphs
+    return plan
 
 
 def _gather_carry(carry: SearchCarry, idx: torch.Tensor) -> SearchCarry:
@@ -730,7 +865,8 @@ _OUT_FIELDS = ("actions", "lengths", "repeats_done", "states_explored", "depth_c
 
 
 def make_bucketed_planner(agent: ActiveInferenceAgent, p: MCTSParams,
-                          check_every: int = 16, min_bucket: int = 32):
+                          check_every: int = 16, min_bucket: int = 32,
+                          graphed: Optional[bool] = None):
     """Host-driven planner with batch compaction.
 
     The plain planner runs until the slowest env of the batch decides, and
@@ -758,16 +894,22 @@ def make_bucketed_planner(agent: ActiveInferenceAgent, p: MCTSParams,
     valid because ``done`` only grows and a done env's tree is frozen; the
     mask that decides it is the snapshot, not the live ``carry.done``.
 
+    ``graphed`` as ``make_jit_planner``'s: every chunk of the search replays
+    one captured iteration at its bucket size (``plan.graphs``: one graph
+    per bucket size).
+
     Returns ``plan(frames, seed_path) -> MCTSResult``; after a call
     ``plan.bucket_trace`` lists its bucket sizes and ``plan.schedule`` the
     iterations at which it compacted.
     """
     n_iters, _, _ = _budget(p, agent.pi_dim)
+    graphs = graphs_lib.Graphs()
 
     @torch.inference_mode()
     def plan(frames: torch.Tensor, seed_path: Sequence[int]) -> MCTSResult:
         B0, A = frames.shape[0], agent.pi_dim
         dev = frames.device
+        g = graphs if _use_graphs(graphed, frames) else None
         plan.bucket_trace = [B0]
         gidx = np.arange(B0)  # bucket row -> original env row (-1 = pad)
         recorded = []
@@ -784,14 +926,19 @@ def make_bucketed_planner(agent: ActiveInferenceAgent, p: MCTSParams,
 
         stash = []  # (MCTSResult on the device, bucket rows, original env rows)
         i_host = next_stop(0)
-        carry = _run_search(agent, _init_search(agent, frames, p, seed_path), p, i_host)
-        pending_done = _HostCopy(carry.done)
+        carry = _run_search(agent, _init_search(agent, frames, p, seed_path), p, i_host,
+                            graphs=g)
+        # The done mask after each chunk, on its way to the host (chunk c in
+        # slot c % 2): read while the next chunk runs.
+        done_copies = graphs_lib.HostSlots()
+        c = 0
+        done_copies.put(c, carry.done)
         while True:
             ran_next = i_host < n_iters
             i_next = next_stop(i_host) if ran_next else i_host
             if ran_next:
-                carry = _run_search(agent, carry, p, i_next)
-            done = pending_done.read().numpy()  # waits for the previous chunk only
+                carry = _run_search(agent, carry, p, i_next, graphs=g)
+            done = done_copies.get(c).numpy()  # waits for the previous chunk only
             if not ran_next or done.all():
                 # Budget exhausted, or everything decided (a chunk enqueued
                 # above was then a no-op).
@@ -826,7 +973,8 @@ def make_bucketed_planner(agent: ActiveInferenceAgent, p: MCTSParams,
                 if new_B <= min_bucket:
                     at_floor = True
             i_host = i_next
-            pending_done = _HostCopy(carry.done)
+            c += 1
+            done_copies.put(c, carry.done)
 
         plan.schedule = recorded  # this call's compaction iterations
 
@@ -846,4 +994,5 @@ def make_bucketed_planner(agent: ActiveInferenceAgent, p: MCTSParams,
                 out[name][dst] = x[rows]
         return MCTSResult(**out, all_paths=None, all_paths_G=None, tree=None)
 
+    plan.graphs = graphs
     return plan

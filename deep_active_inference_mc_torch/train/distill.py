@@ -4,9 +4,9 @@ Port of ``deep_active_inference_mc_tpu/train/distill.py``. A phase has two
 stages:
 
   1. **Collect**: a fleet of ``distill_envs`` fresh envs is driven by the
-     batched planner (``plan.mcts.active_inference_mcts``, fused evaluator,
-     ``distill_expand_k`` leaves per iteration) for ``distill_macro``
-     decisions; every decision records the env latents and last reward
+     batched planner (``plan.mcts.make_jit_planner``, fused evaluator,
+     ``distill_expand_k`` leaves per iteration; on a card its search
+     replays one captured iteration) for ``distill_macro`` decisions; every decision records the env latents and last reward
      (the frame re-renders exactly from the LUT, so frames are not stored)
      and the root visit counts.
   2. **Distill**: the records replay through the current encoder and the
@@ -82,7 +82,8 @@ class Distiller:
     returns the state (``top`` and its optimizer updated in place) and the
     phase's metrics."""
 
-    def __init__(self, agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor):
+    def __init__(self, agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor,
+                 graphed: Optional[bool] = None):
         self.agent = agent
         self.cfg = cfg
         self.lut = lut
@@ -90,6 +91,8 @@ class Distiller:
         self.mcts_params = mcts_lib.MCTSParams(
             repeats=cfg.distill_repeats, expand_k=cfg.distill_expand_k, fused_eval=True,
             max_depth=16)
+        # The top Adam updates the weights in place: its graphs stay valid.
+        self.planner = mcts_lib.make_jit_planner(agent, self.mcts_params, graphed=graphed)
 
     def _render(self, env: env_lib.EnvState) -> torch.Tensor:
         return env_lib.render_obs(self.lut, env, self.cfg.resolution, self.cfg.colour_channels)
@@ -114,9 +117,7 @@ class Distiller:
         for t in range(cfg.distill_macro):
             o = self._render(env)
             plan_draws = None if draws is None or draws.plans is None else draws.plans[t]
-            res = mcts_lib.active_inference_mcts(
-                agent, o, self.mcts_params, seed_path=None if plan_draws else (seed, t),
-                draws=plan_draws)
+            res = self.planner(o, None if plan_draws else (seed, t), draws=plan_draws)
             root_best = torch.argmax(res.root_N, dim=-1)
             a = torch.where(res.lengths > 0, res.actions[:, 0], root_best)
             lat.append(env.latents)

@@ -31,6 +31,10 @@ flag). On a card a chunk of every method but mcts is the counterpart of
 the JAX package's jitted scan: one captured CUDA graph of a macro step,
 replayed per macro step, its noise drawn eagerly with ``draw_macro`` (the
 order the eager step draws it), so it scores what the eager chunk scores.
+Under mcts the macro steps run op by op (a graph of one could not hold
+the search's loop of unknown length), and the planner, built once per
+sweep (``plan.mcts.make_jit_planner``; ``make_bucketed_planner`` for
+``run_sweep_bucketed``), replays its own graph of one search iteration.
 
 ``mesh`` (``parallel/mesh.py``, data ranks only) shards the envs over the
 ranks, the counterpart of ``run_sweep(..., mesh=)``: every rank draws each
@@ -128,12 +132,11 @@ def _efe_score(agent, generator, o, method, steps, samples, calc_mean, crn,
     return -(t0 + t1)
 
 
-def _mcts_plan(agent, o, mcts_params, seed_path, draws):
-    """The planner's trimmed path with the visit-max root action in place
-    of an empty one (the demo would simply re-plan next frame):
-    ((B, max_depth) actions, (B,) lengths >= 1)."""
-    res = mcts_lib.active_inference_mcts(
-        agent, o, mcts_params, seed_path, draws=None if draws is None else draws.search)
+def _mcts_plan(agent, o, planner, seed_path, draws):
+    """``planner``'s (``make_jit_planner``'s plan) trimmed path with the
+    visit-max root action in place of an empty one (the demo would simply
+    re-plan next frame): ((B, max_depth) actions, (B,) lengths >= 1)."""
+    res = planner(o, seed_path, draws=None if draws is None else draws.search)
     actions = res.actions.clone()
     actions[:, 0] = torch.where(res.lengths > 0, actions[:, 0],
                                 torch.argmax(res.root_N, dim=-1))
@@ -141,14 +144,14 @@ def _mcts_plan(agent, o, mcts_params, seed_path, draws):
 
 
 def _controller_actions(agent, generator, o, env, method, steps, samples,
-                        temperature, mcts_params, calc_mean, crn=False, draws=None,
+                        temperature, planner, calc_mean, crn=False, draws=None,
                         seed_path=None):
     """One decision per env: (B,) actions in agent space (env space for
-    the expert). mcts takes the first action of its plan; every other
-    controller samples by Gumbel-max, the random baseline over equal
+    the expert). mcts takes the first action of ``planner``'s plan; every
+    other controller samples by Gumbel-max, the random baseline over equal
     logits."""
     if method == "mcts":
-        return _mcts_plan(agent, o, mcts_params, seed_path, draws)[0][:, 0]
+        return _mcts_plan(agent, o, planner, seed_path, draws)[0][:, 0]
     if method == "random":
         logits = torch.zeros((env.batch, agent.pi_dim), device=env.device)
     elif method == "expert":
@@ -163,14 +166,14 @@ def _controller_actions(agent, generator, o, env, method, steps, samples,
 
 
 def _controller_plan(agent, generator, o, env, method, steps, samples, temperature,
-                     mcts_params, calc_mean, crn=False, draws=None, seed_path=None):
+                     planner, calc_mean, crn=False, draws=None, seed_path=None):
     """One decision per env as a plan: ((B, width) actions, (B,) lengths).
-    mcts: the trimmed visit-max path. ai/t1/t12: the sampled action
-    ``steps`` wide."""
+    mcts: ``planner``'s trimmed visit-max path. ai/t1/t12: the sampled
+    action ``steps`` wide."""
     if method == "mcts":
-        return _mcts_plan(agent, o, mcts_params, seed_path, draws)
+        return _mcts_plan(agent, o, planner, seed_path, draws)
     a = _controller_actions(agent, generator, o, env, method, steps, samples,
-                            temperature, mcts_params, calc_mean, crn, draws)
+                            temperature, planner, calc_mean, crn, draws)
     return a[:, None].expand(-1, max(steps, 1)), torch.full_like(a, steps)
 
 
@@ -235,16 +238,21 @@ def make_sweep(
     (``utils/graphs.py``), its noise drawn eagerly with ``draw_macro`` into
     the graph's static buffers and its tallies written into a static
     (n_macro_steps, 6) table; False runs op by op. A graphed sweep on the
-    CPU raises, and so does one under a mesh or for mcts."""
+    CPU raises, and so does one under a mesh or for mcts. Under mcts the
+    macro steps run op by op and the planner (``make_jit_planner``) replays
+    its search iteration as a graph on a card without a mesh, unless
+    ``graphed`` is False; ``run.planner`` is that planner (None for the
+    other methods)."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     if mcts_params is None:
         mcts_params = mcts_lib.MCTSParams(repeats=50, max_depth=16)
+    planner_graphed = graphed  # the caller's, before the macro steps' default
     if graphed is None:
         graphed = method != "mcts" and mesh is None and lut.is_cuda
     if graphed and (mesh is not None or method == "mcts"):
-        raise ValueError("a graphed sweep runs on one rank and not for mcts (its planner "
-                         "reads its done flags on the host)")
+        raise ValueError("a graphed sweep runs on one rank and not for mcts (a macro step's "
+                         "graph cannot hold the search's loop; the planner replays its own)")
     use_queue = plan_queue and method in QUEUE_METHODS
     # queue_cap > 0 bounds commitment: how much of each plan executes
     # before re-planning (1: re-plan every macro step; 0: the whole plan).
@@ -253,6 +261,11 @@ def make_sweep(
         q_cap = min(q_cap, queue_cap)
     render_fn = _render_fn(lut, cfg.resolution, cfg.colour_channels)
     graphs = graphs_lib.Graphs()
+    planner = None
+    if method == "mcts":  # gloo cannot be captured: a mesh's planner runs op by op
+        planner = mcts_lib.make_jit_planner(
+            agent, mcts_params,
+            graphed=False if mesh is not None or planner_graphed is False else None)
 
     def macro_step(carry, d, generator=None, seed_path=None):
         """One macro step: ((env, qstate), tallies). ``d`` (None: drawn
@@ -260,7 +273,7 @@ def make_sweep(
         env, qstate = carry
         o = render_fn(env)
         decision = (agent, generator, o, env, method, steps, samples, temperature,
-                    mcts_params, calc_mean, crn, d, seed_path)
+                    planner, calc_mean, crn, d, seed_path)
         respawns = None if d is None else d.respawns
         if use_queue:
             new_q, new_len = _controller_plan(*decision)
@@ -344,6 +357,7 @@ def make_sweep(
             out["qstate"] = qstate
         return out
 
+    run.planner = planner
     return run
 
 
@@ -466,13 +480,15 @@ def run_sweep_bucketed(
     min_bucket: int = 32,
     plan_queue: bool = False,
     queue_cap: int = 0,
+    graphed: Optional[bool] = None,
 ) -> Dict:
     """MCTS sweep on the bucketed (batch-compaction) planner.
 
     The planner is host-driven (``mcts_lib.make_bucketed_planner``), so the
     macro loop runs at host level, with a host sync per macro step. Output
     keys match ``run_sweep``, plus ``"bucket_traces"``: each plan's bucket
-    sizes.
+    sizes. ``graphed`` as the planner's: each chunk of its search replays a
+    captured iteration on a card unless False.
 
     ``plan_queue`` runs the full-plan protocol with a host-side queue, and
     plans (and renders) only for the envs whose queue ran out, gathered and
@@ -481,7 +497,7 @@ def run_sweep_bucketed(
     if mcts_params is None:
         mcts_params = mcts_lib.MCTSParams(repeats=50, max_depth=16)
     plan = mcts_lib.make_bucketed_planner(agent, mcts_params, check_every=check_every,
-                                          min_bucket=min_bucket)
+                                          min_bucket=min_bucket, graphed=graphed)
     render_fn = _render_fn(lut, cfg.resolution, cfg.colour_channels)
     device = lut.device
 

@@ -28,14 +28,32 @@ Kernel launch counts (``ops.cuda.LAUNCHES``) stay what the eager loop
 counts: a wrapper counts once while its launch is captured, and the count
 is taken back and added on every replay instead.
 
-``Graphs.scan`` raises on CPU tensors: on the CPU the callers run the same
-body through ``eager_scan``. A capture or a replay that fails raises.
+``Graphs.while_loop(body, carry, xs, n, stop)`` is the counterpart of a
+``lax.while_loop`` whose condition reads the device (the planner's search,
+``plan/mcts.py``): it replays one captured step until ``stop(carry)``, a
+0-d bool on the device, says stop, at most ``n`` times. The flag is read one
+step late, so the card always has a step queued: before each step it is
+copied into one of two pinned slots, and the host reads that slot before
+it enqueues the step after. At most one step runs after the flag turned
+true (a step that must then change nothing, as a search iteration with
+every env decided). There is no ``ys`` table, and the carry is not cloned
+out: it lives in the graph's static buffers (a carry that is already there
+is not copied in again) until the next loop of the same signature. The
+loop's graphs share one memory pool: their replays never overlap, and
+every output lands in buffers allocated outside the pool.
+``eager_while_loop`` is its op-by-op twin.
+
+``Graphs.scan`` and ``Graphs.while_loop`` raise on CPU tensors: on the CPU
+the callers run the same body through ``eager_scan`` or
+``eager_while_loop``. A capture or a replay that fails raises.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -43,6 +61,8 @@ import torch
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
 
 Body = Callable[[Any, Any], Tuple[Any, Optional[torch.Tensor]]]
+LoopBody = Callable[[Any, Any], Any]  # (carry, x) -> carry
+Stop = Callable[[Any], torch.Tensor]  # carry -> 0-d bool on the carry's device
 
 
 # ---------------------------------------------------------------- trees
@@ -98,6 +118,30 @@ def _copy_(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
         torch._foreach_copy_(d, s)
 
 
+def _copy_changed_(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
+    """``_copy_`` of the pairs whose source is not already the destination."""
+    pairs = [(d, s) for d, s in zip(dst, src, strict=True) if d.data_ptr() != s.data_ptr()]
+    if pairs:
+        _copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+
+@contextlib.contextmanager
+def _capturing(graph: torch.cuda.CUDAGraph, **kwargs):
+    """``torch.cuda.graph(graph, **kwargs)`` with Python's cyclic collector
+    run first and off until the capture ends: a collection inside a
+    capture could free a dead graph (a planner's graphs sit in a closure
+    cycle), and destroying a graph invalidates the capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _backend_flags() -> tuple:
     """The settings that choose kernels at capture time."""
     return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
@@ -119,6 +163,54 @@ def eager_scan(body: Body, carry, xs: Iterable, n: int):
     return carry, (torch.stack(ys) if ys and ys[0] is not None else None)
 
 
+class HostSlots:
+    """Tensors on their way to the host through two reused slots, written
+    by turns, so that the host reads copy k while copy k + 1 is being
+    written. On a card a slot is pinned, its copy is enqueued, and ``get``
+    waits for that copy alone; a slot is allocated anew only when the shape
+    or dtype changes. One per loop (the search's flags, the bucketed
+    planner's done masks)."""
+
+    def __init__(self):
+        self._host: List[Optional[torch.Tensor]] = [None, None]
+        self._events: List[Optional[torch.cuda.Event]] = [None, None]
+
+    def put(self, k: int, x: torch.Tensor) -> None:
+        """Enqueue the copy of ``x`` into slot k % 2."""
+        slot, cuda = k % 2, x.is_cuda
+        host = self._host[slot]
+        if host is None or host.shape != x.shape or host.dtype != x.dtype:
+            host = self._host[slot] = torch.empty(x.shape, dtype=x.dtype, pin_memory=cuda)
+        host.copy_(x, non_blocking=cuda)
+        self._events[slot] = None
+        if cuda:
+            self._events[slot] = torch.cuda.Event()
+            self._events[slot].record()
+
+    def get(self, k: int) -> torch.Tensor:
+        """Copy k, once it has landed (valid until copy k + 2 is put)."""
+        event = self._events[k % 2]
+        if event is not None:
+            event.synchronize()
+        return self._host[k % 2]
+
+
+def eager_while_loop(body: LoopBody, carry, xs: Iterable, n: int, stop: Stop):
+    """At most ``n`` steps of ``carry = body(carry, x)`` op by op, on any
+    device, taking the inputs of ``xs`` as it goes. ``stop(carry)`` is
+    copied to the host before each step; before step k > 0 the host reads
+    the copy made before step k - 1 and stops if it is true. Returns
+    (carry, steps run)."""
+    xs = iter(xs)
+    flags = HostSlots()
+    for k in range(n):
+        if k and bool(flags.get(k - 1)):
+            return carry, k
+        flags.put(k, stop(carry))
+        carry = body(carry, next(xs))
+    return carry, n
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: torch.cuda.CUDAGraph
@@ -126,9 +218,11 @@ class _Graph:
     carry: List[torch.Tensor]  # static carry buffers
     x_spec: Any
     x: List[torch.Tensor]  # static input buffers
-    ys: Optional[torch.Tensor]  # the static (n, ...) table of the ys
-    t: torch.Tensor  # the table's next row, on the device
+    ys: Optional[torch.Tensor]  # the static (n, ...) table of the ys (a scan's)
+    t: Optional[torch.Tensor]  # the table's next row, on the device (a scan's)
     launches: collections.Counter  # kernel launches per replay
+    flag: Optional[torch.Tensor] = None  # a loop's stop flag after a replay
+    flags: Optional[HostSlots] = None  # a loop's host slots
 
 
 class Graphs:
@@ -137,8 +231,14 @@ class Graphs:
 
     def __init__(self):
         self._graphs: Dict[Any, _Graph] = {}
+        self._pool = None  # the loops' shared memory pool
         self.captures = 0
         self.replays = 0
+
+    @property
+    def count(self) -> int:
+        """Graphs held."""
+        return len(self._graphs)
 
     def scan(self, body: Body, carry, xs: Iterable, n: int,
              deps: Callable[[], Sequence[torch.Tensor]] = tuple):
@@ -164,53 +264,127 @@ class Graphs:
             g = self._graphs[sig] = self._capture(body, carry, leaves, xs, n, deps)
             done = 1
         for _ in range(done, n):
-            x_leaves: List[torch.Tensor] = []
-            if _flatten(next(xs), x_leaves) != g.x_spec:
-                raise ValueError("a step's input differs in structure, shape or dtype "
-                                 "from the captured step's")
-            _copy_(g.x, x_leaves)
-            g.graph.replay()
-            LAUNCHES.update(g.launches)
-            self.replays += 1
+            self._feed(g, next(xs))
         out = rebuild(carry, [c.clone() for c in g.carry])
         return out, None if g.ys is None else g.ys.clone()
 
     def _capture(self, body: Body, carry, leaves, xs, n: int, deps) -> _Graph:
-        """One real step on a side stream (the warm-up, on the static
-        buffers), then the capture of one step."""
-        main = torch.cuda.current_stream()
+        """A scan's graph: its first step is the warm-up."""
         static = [t.clone() for t in leaves]
         t = torch.zeros((1,), dtype=torch.long, device=static[0].device)
-        x = next(xs)  # drawn on the main stream, which the side stream then waits for
-        side = torch.cuda.Stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
+        ys = None
+
+        def step(x):
             new, y = body(rebuild(carry, static), x)
             _copy_(static, leaves_of(new))
-            if y is not None:
-                y.record_stream(main)
-        main.wait_stream(side)
-        ys = None
+            if ys is None:
+                return y
+            ys.index_copy_(0, t, y.unsqueeze(0))
+            t.add_(1)
+
+        x = next(xs)  # drawn on the main stream, which the warm-up's stream waits for
+        y = _warm_up(lambda: step(x))
         if y is not None:
             ys = torch.empty((n,) + tuple(y.shape), dtype=y.dtype, device=y.device)
             ys[0].copy_(y)
+        graph, x_spec, static_x, launches = self._capture_step(step, x)
+        t.fill_(1)
+        return _Graph(graph, _addresses(deps), static, x_spec, static_x, ys, t, launches)
+
+    def while_loop(self, body: LoopBody, carry, xs: Iterable, n: int, stop: Stop,
+                   deps: Callable[[], Sequence[torch.Tensor]] = tuple, key: Any = ()):
+        """``eager_while_loop(body, carry, xs, n, stop)`` as graph replays
+        (the module's docstring). ``deps`` as ``scan``'s; ``key``: the
+        body's static parameters, which select its graph. Returns (the
+        carry in the graph's static buffers, steps run)."""
+        leaves: List[torch.Tensor] = []
+        spec = _flatten(carry, leaves)
+        if not leaves or not all(t.is_cuda for t in leaves):
+            raise ValueError("Graphs.while_loop captures CUDA tensors only; on the CPU run "
+                             "the body through eager_while_loop")
+        if n <= 0:
+            return carry, 0
+        xs = iter(xs)
+        x = next(xs)
+        sig = ("while_loop", spec, _flatten(x, []), key, _backend_flags())
+        g = self._graphs.get(sig)
+        flag = stop(carry)
+        if g is not None and g.deps == _addresses(deps):
+            _copy_changed_(g.carry, leaves)  # copy in, once per loop
+            g.flags.put(0, flag)
+            self._feed(g, x)
+        else:  # the first step is the capture's warm-up
+            g = self._graphs[sig] = self._capture_loop(body, carry, leaves, x, flag, stop,
+                                                       deps)
+        for k in range(1, n):
+            if bool(g.flags.get(k - 1)):
+                return rebuild(carry, g.carry), k
+            g.flags.put(k, g.flag)
+            self._feed(g, next(xs))
+        return rebuild(carry, g.carry), n
+
+    def _capture_loop(self, body: LoopBody, carry, leaves, x, flag0, stop, deps) -> _Graph:
+        """A loop's graph, in the loops' shared pool: its first step (its
+        flag copied before it) is the warm-up."""
+        static = [t.clone() for t in leaves]
+        flag = torch.zeros((), dtype=torch.bool, device=static[0].device)
+        flags = HostSlots()
+        flags.put(0, flag0)
+
+        def step(x_):
+            new = body(rebuild(carry, static), x_)
+            _copy_changed_(static, leaves_of(new))
+            flag.copy_(stop(new))
+
+        _warm_up(lambda: step(x))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph, x_spec, static_x, launches = self._capture_step(step, x, self._pool)
+        return _Graph(graph, _addresses(deps), static, x_spec, static_x, None, None, launches,
+                      flag, flags)
+
+    def _capture_step(self, step: Callable[[Any], Any], x, pool=None):
+        """Capture ``step`` fed static copies of ``x``'s tensors: (graph,
+        ``x``'s spec, the static inputs, kernel launches per replay)."""
         x_leaves: List[torch.Tensor] = []
         x_spec = _flatten(x, x_leaves)
         static_x = [v.clone() for v in x_leaves]
         graph = torch.cuda.CUDAGraph()
         before = collections.Counter(LAUNCHES)
-        with torch.cuda.graph(graph):
-            new, y = body(rebuild(carry, static), rebuild(x, static_x))
-            _copy_(static, leaves_of(new))
-            if ys is not None:
-                ys.index_copy_(0, t, y.unsqueeze(0))
-                t.add_(1)
+        with _capturing(graph, pool=pool):
+            step(rebuild(x, static_x))
         # The capture launched nothing: its counts move to the replays.
         launches = collections.Counter(LAUNCHES) - before
         LAUNCHES.subtract(launches)
-        t.fill_(1)
         self.captures += 1
-        return _Graph(graph, _addresses(deps), static, x_spec, static_x, ys, t, launches)
+        return graph, x_spec, static_x, launches
+
+    def _feed(self, g: _Graph, x) -> None:
+        """Copy one step's input ``x`` into ``g``'s static buffers and replay."""
+        x_leaves: List[torch.Tensor] = []
+        if _flatten(x, x_leaves) != g.x_spec:
+            raise ValueError("a step's input differs in structure, shape or dtype "
+                             "from the captured step's")
+        _copy_(g.x, x_leaves)
+        g.graph.replay()
+        LAUNCHES.update(g.launches)
+        self.replays += 1
+
+
+def _warm_up(run: Callable[[], Any]):
+    """``run()`` on a side stream that waits for the current one, which
+    then waits for it: a step run eagerly before its capture, which settles
+    what a first call sets up (K1's build, optimizer state, cuBLAS's
+    workspace) outside the capture. Returns its result."""
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = run()
+        if isinstance(out, torch.Tensor):
+            out.record_stream(main)
+    main.wait_stream(side)
+    return out
 
 
 def _addresses(deps: Callable[[], Sequence[torch.Tensor]]) -> tuple:

@@ -171,16 +171,18 @@ def port_main():
         z = torch.zeros(B, dtype=torch.long)
         return types.SimpleNamespace(depth_capped=z, repeats_done=z + 1)
 
-    def plain_planner(agent, frames, p, seed_path=None, **_):
+    def plain_factory(agent, p, collect_paths=False, graphed=None):
         c = calls[-1]
-        if not c.params or c.params[-1] != p:  # the same params on every call
-            c.params.append(p)
-        c.batch = frames.shape[0]
+        c.params.append(p)
         c.agent = names[id(agent)]
-        c.plans += 1
-        return stub_result(frames.shape[0])
 
-    def bucketed_factory(agent, p, check_every=16, min_bucket=32):
+        def plan(frames, seed_path=None, draws=None):
+            c.batch = frames.shape[0]
+            c.plans += 1
+            return stub_result(frames.shape[0])
+        return plan
+
+    def bucketed_factory(agent, p, check_every=16, min_bucket=32, graphed=None):
         c = calls[-1]
         c.params.append(p)
         c.planner_kwargs.append(dict(check_every=check_every, min_bucket=min_bucket))
@@ -226,7 +228,7 @@ def port_main():
                    recording(calls, "bucketed", bench.bench_mcts_bucketed, rate_of))
         mp.setattr(bench, "bench_train_round",
                    recording(calls, "train", bench.bench_train_round, rate_of))
-        mp.setattr(tmcts, "active_inference_mcts", plain_planner)
+        mp.setattr(tmcts, "make_jit_planner", plain_factory)
         mp.setattr(tmcts, "make_bucketed_planner", bucketed_factory)
         mp.setattr(tloop, "create_train_state", create_train_state)
         mp.setattr(tloop, "make_epoch_fn", make_epoch_fn)

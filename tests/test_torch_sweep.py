@@ -223,13 +223,13 @@ def test_mcts_decision_matches_jax(monkeypatch):
     as_t = {k: None if v is None else torch.from_numpy(v) for k, v in res.items()}
     monkeypatch.setattr(jsweep.mcts_lib, "active_inference_mcts",
                         lambda *a, **kw: jmcts.MCTSResult(**as_j))
-    monkeypatch.setattr(tsweep.mcts_lib, "active_inference_mcts",
-                        lambda *a, **kw: tmcts.MCTSResult(**as_t))
+    # The port's sweep plans with the planner it built (make_jit_planner's plan).
+    planner = lambda *a, **kw: tmcts.MCTSResult(**as_t)
     o = torch.zeros(B, 1, 64, 64)
     a_j = jsweep._controller_actions(None, None, None, None, None, "mcts", 1, 1, 1.0, None, True)
     q_j, len_j = jsweep._controller_plan(None, None, None, None, "mcts", 1, 1, 1.0, None, True)
-    a_t = tsweep._controller_actions(None, None, o, None, "mcts", 1, 1, 1.0, None, True)
-    q_t, len_t = tsweep._controller_plan(None, None, o, None, "mcts", 1, 1, 1.0, None, True)
+    a_t = tsweep._controller_actions(None, None, o, None, "mcts", 1, 1, 1.0, planner, True)
+    q_t, len_t = tsweep._controller_plan(None, None, o, None, "mcts", 1, 1, 1.0, planner, True)
     np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
     np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
     np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
@@ -263,7 +263,7 @@ FOUR_ACTIONS = types.SimpleNamespace(pi_dim=4)  # all the sweep asks of a stubbe
 def stub_planner(monkeypatch, plan_of, max_depth):
     """Replace the sweep's planner call by ``plan_of(t, b) -> list``; t is
     the macro step, read from the planner's seed path."""
-    def fake(agent, o, mcts_params, seed_path, draws):
+    def fake(agent, o, planner, seed_path, draws):
         B = o.shape[0]
         path = torch.full((B, max_depth), -1, dtype=torch.long)
         lengths = torch.zeros(B, dtype=torch.long)
