@@ -44,8 +44,10 @@ Phases (any failure exits non-zero and prints no result):
      stats series finite, the dropout-free pixel NLL of epoch 3 below
      epoch 1's, the resumed run starts at epoch 3 with the Adam step counts
      continuing, the archive holds no optimizer state, K1 launched exactly
-     twice per training round. Prints ms per round, train env-steps/s and
-     peak device memory.
+     twice per training round, the epochs' rounds, the eval passes and the
+     sweeps through their graphs (a capture or replays, at least one
+     replay). Prints ms per round, train env-steps/s and peak device
+     memory.
   5. card against CPU: env render, networks and G on 8 envs with injected
      noise, with TF32 off (then the max differences with the defaults);
      then one training round at batch 8 with injected noise: the three
@@ -80,18 +82,23 @@ Phases (any failure exits non-zero and prints no result):
      10-step habit readouts on 512 envs. Checks: every plan, mid and down
      and their Adams bit-equal to the checkpoint's, the top Adam at 4 steps
      per iteration, K1's launches = 8 per collect + 4 per iteration + one
-     per readout macro step. Prints ms per collect, plans/s of the collect,
-     ms per replay step and peak memory. Then the trainer with
-     ``--distill_every 1 --distill_macro 2`` for one epoch: the phase runs
-     before the save and fills the distill series.
+     per readout macro step, the replay steps through their graph. Prints
+     ms per collect, plans/s of the collect, the replay phase's time (its
+     first step eager, the capture, then replays: 15(i) times the steps
+     alone) and peak memory. Then the trainer with ``--distill_every 1 --distill_macro 2``
+     for one epoch: the phase runs before the save and fills the distill
+     series; its epoch, eval and replay go through their graphs.
   9. the demo: ``--headless 100`` (one round) on the distilled checkpoint
      for ``habit``, ``ai`` (7 steps, 10 samples) and ``mcts`` (300
      repeats, depth 3). Checks: a finite score trace, K1's launches = the
-     plans made. Prints frames/s and plans per round.
+     plans made, every tick (and every habit and ai plan) through its
+     graph. Prints frames/s and plans per round.
  10. the causal trainer CLI at batch 512 (test size 1000, 20 rounds, 2
      epochs, then ``--resume`` for a third). Checks: finite stats, F
      falling from epoch 1 to 3, 2 K1 launches per round and 2 per eval,
-     the figures drawn every epoch. Prints ms per round and peak memory.
+     the figures drawn every epoch, the rounds, the evals and the
+     traversals' decode through their graphs, the resumed Adam still
+     capturable. Prints ms per round and peak memory.
  11. bf16 forwards at full width: the sweep CLI ``--bf16 --method ai`` at
      1024 envs, 20 macro steps (ms/macro beside phase 3's float32); the
      trainer ``--bf16`` at batch 512 with the flagship's flags, two epochs
@@ -148,7 +155,10 @@ Phases (any failure exits non-zero and prints no result):
      13) run their hot loops as captured CUDA graphs, the port's
      counterpart of the JAX package's jitted scans (``utils/graphs.py``),
      and the planners of 6, 8, 9, 13 and 14 replay one captured search
-     iteration per iteration, the counterpart of its ``while_loop``.
+     iteration per iteration, the counterpart of its ``while_loop``; the
+     eval passes, the causal trainer, distillation's replay and the demo's
+     rounds of 4, 8, 9, 10 and 13 replay graphs too (``Graphs.call``,
+     ``Graphs.scan``).
      Here each graphed path is held against its eager body from one seed.
      (a) The bench's env-step run, 4096 envs x 256 steps: the state and
      checksum bit-equal, K1's launches equal; env steps/s in turns;
@@ -176,7 +186,17 @@ Phases (any failure exits non-zero and prints no result):
      collect's records and K1's launches equal; with PyTorch's defaults
      each plan timed in turns: ms per iteration, plans/s, graphs captured,
      peak memory; the demo's frames/s; what the graph's max_depth walks
-     cost (a captured walk of 1 and of 16 steps).
+     cost (a captured walk of 1 and of 16 steps). (g)-(j) the rest of the
+     JAX package's single-card compiled functions, each op by op and
+     graphed from one seed (every tensor bit-equal and K1's launches equal
+     with cuDNN's deterministic algorithms), then timed in turns with
+     PyTorch's defaults after one untimed run each, with peak memory: (g)
+     the causal epoch at batch 512 (20 rounds) and its eval at test size
+     1000, ms per round and per eval pass; (h) the trainer's eval pass at
+     test size 1000 on the flagship, ms per pass; (i) one distillation
+     phase's replay at the CLI's defaults (20 steps of 2048 rows), ms per
+     step; (j) one demo round per controller (``habit``, ``ai``, ``t1``,
+     ``t12``; ``mcts`` is (f)'s) on the flagship, frames/s.
  16. one JSON line describing every hand-written kernel, the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
@@ -701,10 +721,14 @@ def phase_train(torch, smi: str, args, out_root: str) -> dict:
             "--save_every", "1", "--archive_every", "2", "--out_root", out_root]
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    first = train_app.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
+    with recorded_graphs(torch) as seen:
+        first = train_app.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
     launches_first = dict(LAUNCHES)
     check(first["start_epoch"] == 1, f"train: started at epoch {first['start_epoch']}")
     check_run("train", first, launches_first, TRAIN_EPOCHS)
+    # The epochs' rounds, the eval passes and the sweeps replayed graphs.
+    print(f"[train] {check_graphed('train', seen, ('make_epoch_fn', 'make_eval', 'make_sweep'))}",
+          flush=True)
     steps = adam_steps(first["state"])
     check(set(steps.values()) == {TRAIN_EPOCHS * TRAIN_ROUNDS},
           f"train: Adam step counts {steps}")
@@ -1109,6 +1133,60 @@ def recorded_plans(torch, log: list, require_graphs: bool = True):
         check(counts["replays"] > 0, f"{len(log)} plans replayed no graph ({dict(counts)})")
 
 
+@contextlib.contextmanager
+def recorded_graphs(torch):
+    """While the block runs, every ``Graphs`` the port builds records, by
+    the qualified name of the function or body it is given (``scan``,
+    ``call``, ``while_loop``), its calls and the captures and replays they
+    made. Yields that table."""
+    from deep_active_inference_mc_torch.utils import graphs as graphs_lib
+
+    seen = collections.defaultdict(collections.Counter)
+    real = graphs_lib.Graphs
+
+    class Recorded(real):
+        def _recorded(self, method, fn, *a, **kw):
+            before = (self.captures, self.replays)
+            out = getattr(real, method)(self, fn, *a, **kw)
+            row = seen[fn.__qualname__]
+            row["calls"] += 1
+            row["captures"] += self.captures - before[0]
+            row["replays"] += self.replays - before[1]
+            return out
+
+        def scan(self, body, *a, **kw):
+            return self._recorded("scan", body, *a, **kw)
+
+        def call(self, fn, *a, **kw):
+            return self._recorded("call", fn, *a, **kw)
+
+        def while_loop(self, body, *a, **kw):
+            return self._recorded("while_loop", body, *a, **kw)
+
+    with patched(graphs_lib, Graphs=Recorded):
+        yield seen
+
+
+def check_graphed(tag: str, seen: dict, names) -> str:
+    """Each of ``names`` (a part of a body's qualified name) went through
+    its graphs in ``seen`` (``recorded_graphs``): called, every call
+    captured or replayed; and the block replayed. Returns the rows, for
+    the phase's line."""
+    rows = {}
+    for name in names:
+        hit = collections.Counter()
+        for qualname, row in seen.items():
+            if name in qualname:
+                hit.update(row)
+        check(hit["calls"] > 0, f"{tag}: {name} never went through a graph (op by op on the "
+              f"card?); graphs seen {dict(seen)}")
+        check(hit["captures"] + hit["replays"] >= hit["calls"],
+              f"{tag}: {name} graphs {dict(hit)}")
+        rows[name] = dict(hit)
+    check(sum(r["replays"] for r in rows.values()) > 0, f"{tag}: no replay in {rows}")
+    return f"graphs {rows}"
+
+
 def report_plans(torch, tag: str, log: list, envs: int, macro: int, wall: float, launches: dict,
                  smi: str, repeats: int = MCTS_REPEATS, graphs: dict | None = None) -> None:
     reps = torch.cat([r.repeats_done for _, _, r, _ in log]).double()
@@ -1410,8 +1488,8 @@ def phase_distill(torch, smi: str, checkpoint: Path, out_root: str, figures: dic
           f"{cfg.distill_expand_k}, batch {cfg.distill_batch}, {cfg.distill_passes} passes and "
           f"{TRAIN_SWEEP_ENVS} readout envs are the defaults: {n_records} records, {steps} "
           f"replay steps per iteration; PyTorch's defaults", flush=True)
-    timings = {"collect": [], "dstep": []}
-    real_collect, real_dstep = distill_lib.Distiller.collect, distill_lib.Distiller.dstep
+    timings = {"collect": [], "replay": []}
+    real_collect, real_replay = distill_lib.Distiller.collect, distill_lib.Distiller.replay
 
     def timed(name, fn):
         def run(*a, **kw):
@@ -1428,9 +1506,9 @@ def phase_distill(torch, smi: str, checkpoint: Path, out_root: str, figures: dic
     before = torch.load(checkpoint / "state" / "state.pt", map_location="cpu", weights_only=True)
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    with recorded_plans(torch, log), patched(distill_lib.Distiller,
-                                            collect=timed("collect", real_collect),
-                                            dstep=timed("dstep", real_dstep)):
+    with recorded_plans(torch, log), recorded_graphs(torch) as seen, patched(
+            distill_lib.Distiller, collect=timed("collect", real_collect),
+            replay=timed("replay", real_replay)):
         t0 = time.perf_counter()
         res = distill_app.main(["-n", str(checkpoint), "-o", str(out_dir), "--iters",
                                 str(DISTILL_ITERS), "--distill_macro", str(DISTILL_MACRO),
@@ -1463,7 +1541,8 @@ def phase_distill(torch, smi: str, checkpoint: Path, out_root: str, figures: dic
           f"distill: {launches.get('render', 0)} K1 launches, want {want} ({DISTILL_MACRO} per "
           f"collect + {steps} per iteration's replay + {readouts} readouts x "
           f"{DISTILL_SWEEP_STEPS})")
-    collect_s, dstep_s = timings["collect"], timings["dstep"]
+    replayed = check_graphed("distill", seen, ("Distiller.replay",))
+    collect_s, replay_s = timings["collect"], timings["replay"]
     plan_s = sum(dt for _, dt, _, _ in log)
     iters = sum(min(int(r.repeats_done.max()) + cfg.distill_expand_k, cfg.distill_repeats)
                 // cfg.distill_expand_k for _, _, r, _ in log)
@@ -1471,10 +1550,12 @@ def phase_distill(torch, smi: str, checkpoint: Path, out_root: str, figures: dic
           f"{statistics.mean(collect_s) * 1e3:.1f} ms each ({[round(x, 3) for x in collect_s]} "
           f"s), plans/s of the collect {n_records / statistics.mean(collect_s):.1f}, "
           f"{plan_s / max(iters, 1) * 1e3:.2f} ms per planner iteration ({iters} iterations of "
-          f"{cfg.distill_expand_k} x {cfg.distill_envs} leaves); replay "
-          f"{statistics.median(dstep_s) * 1e3:.2f} ms per step (median of {len(dstep_s)}, "
-          f"{min(cfg.distill_batch, n_records)} rows); readouts {res['readouts']}; peak "
-          f"memory {peak / 2 ** 30:.2f} GiB; launches {launches} [{smi}]", flush=True)
+          f"{cfg.distill_expand_k} x {cfg.distill_envs} leaves); replay phase "
+          f"{[round(x * 1e3, 2) for x in replay_s]} ms (graphed: {steps} steps of "
+          f"{min(cfg.distill_batch, n_records)} rows, the first eager, then the capture and "
+          f"{steps - 1} replays; 15(i) times the steps without the capture); readouts "
+          f"{res['readouts']}; peak memory {peak / 2 ** 30:.2f} GiB; launches {launches}; "
+          f"{replayed} [{smi}]", flush=True)
 
     # The trainer's hook: one epoch with a distill phase before the save.
     hook_macro = 2
@@ -1485,8 +1566,11 @@ def phase_distill(torch, smi: str, checkpoint: Path, out_root: str, figures: dic
             "--out_root", str(Path(out_root) / "hook")]
     drawn = dict(figures)
     LAUNCHES.clear()
-    out = train_app.main(argv)
+    with recorded_graphs(torch) as seen:
+        out = train_app.main(argv)
     hook = dict(LAUNCHES)
+    hook_graphs = check_graphed("trainer hook", seen, ("make_epoch_fn", "make_eval",
+                                                       "Distiller.replay"))
     hook_steps = replay_steps(out["cfg"])
     stats = out["stats"]
     check(all(stats[k][-1] != 0.0 for k in ("distill_kl_first", "distill_kl_last",
@@ -1511,7 +1595,7 @@ def phase_distill(torch, smi: str, checkpoint: Path, out_root: str, figures: dic
     print(f"[distill] trainer hook: 1 epoch of {TRAIN_ROUNDS} rounds, then a phase of "
           f"{hook_macro} decisions and {hook_steps} replay steps before the save; launches "
           f"{hook} = the epoch's plus {hook_macro} + {hook_steps}; figures drawn by the "
-          f"recorders {figures} [{smi}]", flush=True)
+          f"recorders {figures}; {hook_graphs} [{smi}]", flush=True)
     return {"distill": launches, "train_distill_hook": hook}, out_dir
 
 
@@ -1531,10 +1615,13 @@ def phase_demo(torch, smi: str, checkpoint: Path) -> dict:
         log = []
         torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
-        with recorded_plans(torch, log):
+        with recorded_plans(torch, log), recorded_graphs(torch) as seen:
             out = demo_app.main(["-n", str(checkpoint), "--method", method, "--headless",
                                  str(demo_app.DURATION_OF_ROUND), *flags])
         launches = dict(LAUNCHES)
+        # Every tick replays a graph, and so does every habit and ai plan.
+        graphed = check_graphed(f"demo {method}", seen, ("_round_tick",) + (
+            () if method == "mcts" else ("Demo._plan_body",)))
         trace = out["trace"]
         check(tuple(trace.shape) == (demo_app.DURATION_OF_ROUND,)
               and bool(torch.isfinite(trace).all()), f"demo {method}: score trace {trace}")
@@ -1551,8 +1638,8 @@ def phase_demo(torch, smi: str, checkpoint: Path) -> dict:
         print(f"[demo] {method}: {demo_app.DURATION_OF_ROUND} frames in {out['wall']:.3f}s, "
               f"{out['fps']:.1f} frames/s, {out['plans']} plans per round, final score "
               f"{float(trace[-1]):+.4f}{extra}, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches {launches} "
-              f"[{smi}]", flush=True)
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches {launches}; "
+              f"{graphed} [{smi}]", flush=True)
         out_launches[f"demo_{method}"] = launches
     return out_launches
 
@@ -1571,11 +1658,18 @@ def phase_causal(torch, smi: str, out_root: str, figures: dict) -> dict:
     drawn = dict(figures)
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    first = causal_app.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
+    with recorded_graphs(torch) as seen:
+        first = causal_app.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
     launches = dict(LAUNCHES)
+    # The epochs' rounds, the eval passes and the traversals' decode
+    # replayed graphs.
+    graphed = check_graphed("causal", seen, ("make_causal_epoch", "make_causal_eval",
+                                             "StructuralCausalModel.decode"))
     LAUNCHES.clear()
     resumed = causal_app.main(argv + ["--resume", "--epochs", str(TRAIN_EPOCHS + 1)])
     launches_resumed = dict(LAUNCHES)
+    check(resumed["state"].opt.param_groups[0]["capturable"],
+          "causal resume: the Adam is no longer capturable")
     peak = torch.cuda.max_memory_allocated()
     check(resumed["start_epoch"] == TRAIN_EPOCHS + 1,
           f"causal resume: started at epoch {resumed['start_epoch']}")
@@ -1596,8 +1690,9 @@ def phase_causal(torch, smi: str, out_root: str, figures: dict) -> dict:
     secs = first["epoch_seconds"] + resumed["epoch_seconds"]
     print(f"[causal] F by epoch {[round(v, 5) for v in stats['F']]}, cf figures every epoch; "
           f"{[round(s / TRAIN_ROUNDS * 1e3, 3) for s in secs]} ms per round by epoch (the "
-          f"first pays cuDNN's algorithm search); peak memory {peak / 2 ** 20:.1f} MiB; "
-          f"launches {launches} then {launches_resumed} [{smi}]", flush=True)
+          f"first pays cuDNN's algorithm search and the captures); peak memory "
+          f"{peak / 2 ** 20:.1f} MiB; launches {launches} then {launches_resumed}; {graphed} "
+          f"[{smi}]", flush=True)
     return {"causal": launches, "causal_resume": launches_resumed}
 
 
@@ -2824,6 +2919,257 @@ def graphs_planner(torch, dev, smi: str) -> dict:
     return {"graphs_demo_mcts": launches[None], "graphs_distill_collect": g_l}
 
 
+# ------------------------------------------------------------ slice 11
+DEMO_CONTROLLERS = ("habit", "ai", "t1", "t12")  # mcts: (f)'s demo round
+
+
+def in_turns(torch, runs: dict, order=("eager", "graphed", "graphed", "eager")) -> dict:
+    """Each ``runs[mode]()`` once untimed (a graph captures anew under
+    other backend flags), then timed on the host clock between two
+    synchronizations, in turns: the seconds by mode, and each mode's peak
+    memory over its timed runs."""
+    for run in runs.values():
+        run()
+    secs, peaks = collections.defaultdict(list), {}
+    for mode in order:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[mode]()
+        torch.cuda.synchronize()
+        secs[mode].append(time.perf_counter() - t0)
+        peaks[mode] = max(peaks.get(mode, 0), torch.cuda.max_memory_allocated())
+    return {"s": dict(secs), "peak_mib": {m: round(v / 2 ** 20, 1) for m, v in peaks.items()}}
+
+
+def equal_or_fail(torch, tag: str, got, want) -> None:
+    """Two trees of tensors (dicts, lists, tuples, dataclasses) bit-equal."""
+    from deep_active_inference_mc_torch.utils import graphs as graphs_lib
+
+    a, b = graphs_lib.leaves_of(got), graphs_lib.leaves_of(want)
+    check(len(a) == len(b), f"{tag}: {len(a)} tensors graphed, {len(b)} op by op")
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y),
+              f"{tag}: tensor {i} ({tuple(y.shape)}) differs graphed against op by op")
+
+
+def graphs_causal(torch, dev, smi: str) -> dict:
+    """(g) The causal epoch at batch 512 (20 rounds) and two evals at test
+    size 1000 (the second graphed one a replay), op by op and graphed from
+    one seeded state: with cuDNN's deterministic algorithms the metrics,
+    the evals' outputs, the weights, Adam's state and K1's launches
+    bit-equal; then with PyTorch's defaults
+    ms per round and per eval pass in turns (each mode's capture already
+    made), and peak memory."""
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.models.causal import StructuralCausalModel
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.train import causal as causal_lib
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
+
+    cfg = Config(batch=TRAIN_BATCH, test_size=TRAIN_TEST_SIZE)
+    lut = raster.build_sprite_lut(dev)
+
+    def build(graphed):
+        state = causal_lib.create_causal_state(cfg, StructuralCausalModel(),
+                                               seeded_generator(dev, 0), dev)
+        return dict(state=state, gen=seeded_generator(dev, 1),
+                    epoch=causal_lib.make_causal_epoch(cfg, lut, TRAIN_ROUNDS, graphed),
+                    eval=causal_lib.make_causal_eval(cfg, lut, graphed))
+
+    runs, launches = {}, {}
+    with cudnn_deterministic(torch):
+        for mode in ("eager", "graphed"):
+            r = runs[mode] = build(mode == "graphed")
+            LAUNCHES.clear()
+            r["state"], metrics = r["epoch"](r["state"], r["gen"])
+            ev = [r["eval"](r["state"].model, r["state"].precision, r["gen"]) for _ in range(2)]
+            torch.cuda.synchronize()
+            launches[mode] = LAUNCHES.get("render", 0)
+            r["out"] = (torch.tensor(list(metrics.values())), ev,
+                        list(r["state"].model.state_dict().values()),
+                        [v for st in r["state"].opt.state.values() for v in st.values()])
+    equal_or_fail(torch, "causal epoch and eval", runs["graphed"]["out"], runs["eager"]["out"])
+    want = 2 * TRAIN_ROUNDS + 2 * 2
+    check(launches["eager"] == launches["graphed"] == want,
+          f"causal: K1 launches {launches}, want {want} each (2 per round, 2 per eval)")
+    check(runs["graphed"]["eval"].graphs.replays == 1,
+          f"causal: {runs['graphed']['eval'].graphs.replays} eval replays, want 1")
+
+    def epoch(mode):
+        r = runs[mode]
+        return lambda: r.update(state=r["epoch"](r["state"], r["gen"])[0])
+
+    def evaluate(mode):
+        r = runs[mode]
+        return lambda: r["eval"](r["state"].model, r["state"].precision, r["gen"])
+
+    t_epoch = in_turns(torch, {m: epoch(m) for m in runs})
+    t_eval = in_turns(torch, {m: evaluate(m) for m in runs})
+    ms_round = {m: [round(v / TRAIN_ROUNDS * 1e3, 3) for v in t] for m, t in t_epoch["s"].items()}
+    ms_eval = {m: [round(v * 1e3, 3) for v in t] for m, t in t_eval["s"].items()}
+    g = runs["graphed"]
+    print(f"[graphs] (g) causal, batch {TRAIN_BATCH} x {TRAIN_ROUNDS} rounds and two evals at "
+          f"{TRAIN_TEST_SIZE}: metrics, both evals' outputs (the second a replay), weights, "
+          f"Adam's state and K1's launches ({launches['graphed']}) bit-equal graphed and op by op (cuDNN deterministic); with "
+          f"the defaults ms per round {ms_round}, ms per eval pass {ms_eval}; peak memory "
+          f"(epochs) {t_epoch['peak_mib']} MiB, (evals) {t_eval['peak_mib']} MiB; graphs "
+          f"captured {g['epoch'].graphs.captures} + {g['eval'].graphs.captures}, replays "
+          f"{g['epoch'].graphs.replays} + {g['eval'].graphs.replays} [{smi}]", flush=True)
+    return {"graphs_causal": {"render": launches["graphed"]}}
+
+
+def graphs_eval(torch, dev, smi: str) -> dict:
+    """(h) The trainer's eval pass at test size 1000 on the committed
+    flagship, op by op and graphed from one seed: with cuDNN's
+    deterministic algorithms every output and K1's 5 launches bit-equal;
+    then ms per pass in turns and peak memory."""
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.infer.precision import PrecisionState
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.train import evaluate
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
+
+    cfg = Config(test_size=TRAIN_TEST_SIZE)
+    agent = sweep_app.build_agent(cfg, str(ROOT / FLAGSHIP), dev)
+    lut = raster.build_sprite_lut(dev)
+    precision = PrecisionState.create(0.8, device=dev)
+    fns = {m: evaluate.make_eval(agent, cfg, lut, graphed=m == "graphed")
+           for m in ("eager", "graphed")}
+    out, launches = {}, {}
+    with cudnn_deterministic(torch):
+        for mode, fn in fns.items():
+            LAUNCHES.clear()
+            out[mode] = [fn(precision, seeded_generator(dev, 5 + i)) for i in range(2)]
+            torch.cuda.synchronize()
+            launches[mode] = LAUNCHES.get("render", 0)
+    equal_or_fail(torch, "eval pass", out["graphed"], out["eager"])
+    check(launches["eager"] == launches["graphed"] == 2 * EVAL_RENDERS,
+          f"eval pass: K1 launches {launches}, want {2 * EVAL_RENDERS} each (2 passes)")
+    gen = seeded_generator(dev, 7)
+    t = in_turns(torch, {m: (lambda f=f: f(precision, gen)) for m, f in fns.items()})
+    ms = {m: [round(v * 1e3, 3) for v in x] for m, x in t["s"].items()}
+    print(f"[graphs] (h) eval pass, test size {TRAIN_TEST_SIZE}, the flagship: every output "
+          f"and K1's launches ({launches['graphed']} in 2 passes) bit-equal graphed and op by "
+          f"op (cuDNN deterministic); with the defaults ms per pass {ms}; peak memory "
+          f"{t['peak_mib']} MiB; graphs captured {fns['graphed'].graphs.captures}, replays "
+          f"{fns['graphed'].graphs.replays} [{smi}]", flush=True)
+    return {"graphs_eval": {"render": launches["graphed"]}}
+
+
+def graphs_replay(torch, dev, smi: str) -> dict:
+    """(i) One distillation phase's replay at the CLI's defaults (256 envs
+    x 40 decisions = 10240 records, batch 2048, 4 passes: 20 steps) on the
+    committed flagship with seeded records, op by op and graphed from one
+    seed and a fresh top Adam: with cuDNN's deterministic algorithms each
+    step's F and match, the top weights, Adam's state and K1's launches
+    bit-equal; then ms per replay step in turns and peak memory."""
+    import copy
+
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.train import distill as distill_lib
+    from deep_active_inference_mc_torch.train import loop as train_loop
+    from deep_active_inference_mc_torch.utils.device import seeded_generator
+
+    cfg = Config()
+    n = cfg.distill_envs * cfg.distill_macro
+    steps = cfg.distill_passes * (n // cfg.distill_batch)
+    base = sweep_app.build_agent(cfg, str(ROOT / FLAGSHIP), dev)
+    lut = raster.build_sprite_lut(dev)
+    g = seeded_generator(dev, 0)
+    lat = env_lib.sample_latents(g, n, dev)
+    last_r = torch.rand((n,), generator=g, device=dev) * 2 - 1
+    visits = torch.randint(0, 30, (n, 4), generator=g, device=dev).float()
+    log_target = torch.log(distill_lib.visit_targets(visits) + 1e-20)
+
+    def build(graphed):
+        agent = copy.deepcopy(base)
+        opt = train_loop.make_optimizers(cfg, agent)["top"]
+        return dict(agent=agent, opt=opt, gen=seeded_generator(dev, 1),
+                    distiller=distill_lib.Distiller(agent, cfg, lut, graphed=graphed))
+
+    runs, launches = {}, {}
+    with cudnn_deterministic(torch):
+        for mode in ("eager", "graphed"):
+            r = runs[mode] = build(mode == "graphed")
+            LAUNCHES.clear()
+            table = r["distiller"].replay(r["opt"], lat, last_r, log_target, r["gen"])
+            torch.cuda.synchronize()
+            launches[mode] = LAUNCHES.get("render", 0)
+            r["out"] = (table, list(r["agent"].top.state_dict().values()),
+                        [v for st in r["opt"].state.values() for v in st.values()])
+    equal_or_fail(torch, "replay", runs["graphed"]["out"], runs["eager"]["out"])
+    check(launches["eager"] == launches["graphed"] == steps,
+          f"replay: K1 launches {launches}, want {steps} each (1 per step)")
+    table = runs["graphed"]["out"][0]
+
+    def replay(mode):
+        r = runs[mode]
+        return lambda: r["distiller"].replay(r["opt"], lat, last_r, log_target, r["gen"])
+
+    t = in_turns(torch, {m: replay(m) for m in runs})
+    ms = {m: [round(v / steps * 1e3, 3) for v in x] for m, x in t["s"].items()}
+    gr = runs["graphed"]["distiller"].graphs
+    print(f"[graphs] (i) distillation replay, {steps} steps of {cfg.distill_batch} rows "
+          f"({n} records, {cfg.distill_passes} passes), the flagship: F "
+          f"{float(table[0, 0]):.4f}->{float(table[-1, 0]):.4f}, every step's F and match, the "
+          f"top weights, Adam's state and K1's launches ({launches['graphed']}) bit-equal "
+          f"graphed and op by op (cuDNN deterministic); with the defaults ms per replay step "
+          f"{ms}; peak memory {t['peak_mib']} MiB; graphs captured {gr.captures}, replays "
+          f"{gr.replays} [{smi}]", flush=True)
+    return {"graphs_replay": {"render": launches["graphed"]}}
+
+
+def graphs_demo_rounds(torch, dev, smi: str) -> dict:
+    """(j) One demo round per controller (``habit``, ``ai``, ``t1`` and
+    ``t12`` at the demo's defaults: 7 steps, 10 samples; ``mcts``: (f)) at
+    batch 1 on the committed flagship, op by op and graphed from one seed:
+    with cuDNN's deterministic algorithms the score trace, the final env,
+    the plans and K1's launches equal; then frames/s of later rounds in
+    turns and peak memory."""
+    from deep_active_inference_mc_torch.apps import demo as demo_app
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+
+    agent = sweep_app.build_agent(Config(), str(ROOT / FLAGSHIP), dev)
+    out = {}
+    for method in DEMO_CONTROLLERS:
+        args = demo_app.build_parser().parse_args(["--method", method])
+        demos, got, launches = {}, {}, {}
+        with cudnn_deterministic(torch):
+            for mode in ("eager", "graphed"):
+                d = demos[mode] = demo_app.Demo(agent, args,
+                                                graphed=False if mode == "eager" else None)
+                LAUNCHES.clear()
+                trace = d.run_round()
+                torch.cuda.synchronize()
+                launches[mode] = LAUNCHES.get("render", 0)
+                got[mode] = (trace, d.env, d.plans_made)
+        equal_or_fail(torch, f"demo {method}", got["graphed"][:2], got["eager"][:2])
+        plans = got["graphed"][2]
+        check(got["eager"][2] == plans and launches["eager"] == launches["graphed"] == plans,
+              f"demo {method}: plans {got['eager'][2]} op by op, {plans} graphed; K1 launches "
+              f"{launches}")
+        t = in_turns(torch, {m: d.run_round for m, d in demos.items()})
+        fps = {m: [round(demo_app.DURATION_OF_ROUND / v, 2) for v in x] for m, x in t["s"].items()}
+        gr = demos["graphed"].graphs
+        print(f"[graphs] (j) demo {method}, batch 1, the flagship: the score trace (final "
+              f"{float(got['graphed'][0][-1]):+.4f}), the env, {plans} plans and K1's launches "
+              f"equal graphed and op by op (cuDNN deterministic); with the defaults frames/s "
+              f"{fps}; peak memory {t['peak_mib']} MiB; graphs captured {gr.captures}, replays "
+              f"{gr.replays} [{smi}]", flush=True)
+        out[f"graphs_demo_{method}"] = {"render": launches["graphed"]}
+    return out
+
+
 def phase_graphs(torch, dev, smi: str, args, phase3: dict) -> dict:
     """Each graphed path against its eager body on the card, from one seed.
     Returns K1's launch counts of the graphed runs."""
@@ -2834,6 +3180,10 @@ def phase_graphs(torch, dev, smi: str, args, phase3: dict) -> dict:
         runs.update(graphs_rounds(torch, dev, smi, bf16))
     graphs_bench_keys(torch, dev, smi)
     runs.update(graphs_planner(torch, dev, smi))
+    runs.update(graphs_causal(torch, dev, smi))
+    runs.update(graphs_eval(torch, dev, smi))
+    runs.update(graphs_replay(torch, dev, smi))
+    runs.update(graphs_demo_rounds(torch, dev, smi))
     print(f"[graphs] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
     return runs
 

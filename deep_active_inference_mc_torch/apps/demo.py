@@ -26,13 +26,18 @@ action draw of ``habit``/``ai``/``t1``/``t12`` from one uniform of
 ``np.random.default_rng(t + seed)`` (the draw of the JAX demo's
 ``rng.choice``); the planner's and the G estimate's noise seeded by
 (``seed``, tick). ``--headless N`` runs whole rounds through
-``run_round``, which keeps the plan queue on the device and reads its
-length once per tick; on the same draws it gives the same score trace as
-the host-driven ``tick`` loop. The ``mcts`` controller plans with two
-``make_jit_planner``s, built once: one that collects the paths (the host
-tick's visit mask, as the JAX ``Demo``'s) and one that does not
+``run_round``, the counterpart of the JAX demo's jitted ``fused_round``: it
+keeps the plan queue on the device and reads its length once per tick; on
+the same draws it gives the same score trace as the host-driven ``tick``
+loop. On a card each of its ticks (the step, the select, the flush, the
+queue's roll and the trace write) is one replay of a captured CUDA graph,
+and so is each ``habit``, ``ai``, ``t1`` and ``t12`` plan, fed its action
+uniform and its G estimate's noise drawn eagerly from ``DemoDraws``
+(``utils/graphs.py``'s ``Graphs.call``). The ``mcts`` controller plans with
+two ``make_jit_planner``s, built once: one that collects the paths (the
+host tick's visit mask, as the JAX ``Demo``'s) and one that does not
 (``run_round``'s); on a card each replays one captured search iteration per
-iteration. ``-n`` loads a port checkpoint dir, a JAX
+iteration. The host ``tick`` runs op by op. ``-n`` loads a port checkpoint dir, a JAX
 one that holds ``torch_export.npz`` (``artifacts/run512/checkpoints``) or a
 JAX params ``.npz``; without it the agent is a seeded init. The default
 device is ``cuda``; ``--device cpu`` runs on the CPU. matplotlib (the
@@ -56,6 +61,7 @@ from deep_active_inference_mc_torch.envs import raster
 from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 from deep_active_inference_mc_torch.utils import compcache
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_generator
 
 DURATION_OF_EXPERIMENT = 1000
@@ -86,15 +92,34 @@ def make_mask(all_paths: List[List[int]], pos_x: int, pos_y: int, jumps: int):
     return mask / mask.max() if mask.max() > 0 else mask
 
 
-def choose(p: torch.Tensor, u: float) -> torch.Tensor:
-    """Index drawn from probabilities ``p`` (A,) by the uniform ``u``:
-    what ``np.random.Generator.choice(A, p=p)`` returns for that uniform
+def choose(p: torch.Tensor, u) -> torch.Tensor:
+    """Index drawn from probabilities ``p`` (A,) by the uniform ``u`` (a
+    float, or a 0-d float64 tensor on ``p``'s device): what
+    ``np.random.Generator.choice(A, p=p)`` returns for that uniform
     (float64 cumsum over the normalized cdf, right-side search), on
     ``p``'s device and without a host sync."""
     cdf = torch.cumsum(p.to(torch.float64), dim=0)
     cdf = cdf / cdf[-1]
-    return torch.searchsorted(cdf, torch.tensor([u], dtype=torch.float64, device=p.device),
-                              right=True)[0]
+    u = torch.as_tensor(u, dtype=torch.float64, device=p.device).reshape(1)
+    return torch.searchsorted(cdf, u, right=True)[0]
+
+
+def _round_tick(env: env_lib.EnvState, queue: torch.Tensor, qlen: torch.Tensor,
+                trace: torch.Tensor, k: torch.Tensor, respawn: torch.Tensor):
+    """The device work of one ``run_round`` tick: execute the queue's head
+    if the queue holds a plan, flush it on a scoring event, roll it, and
+    write the score into ``trace[k]``. Returns (env, queue, qlen, trace,
+    k + 1)."""
+    stepped = qlen > 0
+    a = torch.clamp(queue[:1], min=0)
+    new, scored = env_lib.step(env, a, respawn=respawn)
+    env = env_lib.EnvState(torch.where(stepped, new.latents, env.latents),
+                           torch.where(stepped, new.score, env.score),
+                           torch.where(stepped, new.last_r, env.last_r))
+    flush = stepped & scored[0]
+    qlen = torch.where(flush, 0, torch.clamp(qlen - stepped.long(), min=0))
+    trace = trace.index_copy(0, k.reshape(1), env.score)
+    return env, torch.roll(queue, -1), qlen, trace, k + 1
 
 
 class DemoDraws:
@@ -160,9 +185,13 @@ class Demo:
             fused_eval=getattr(args, "fused", False),
             using_prior_for_exploration=getattr(args, "prior_explore", False))
         # The host tick's planner collects the paths (the visit mask);
-        # run_round's does not. ``graphed`` as make_jit_planner's.
+        # run_round's does not. ``graphed``: the planners' (as
+        # make_jit_planner's) and run_round's ticks and plans (None: graphs
+        # on a card).
         self.planners = {cp: mcts_lib.make_jit_planner(agent, self.mcts_params, cp, graphed)
                          for cp in (False, True)}
+        self.graphed = graphs_lib.use_graphs(graphed, self.device)
+        self.graphs = graphs_lib.Graphs()  # run_round's ticks and plans
 
     # ------------------------------------------------------------------ UI
     def frame(self) -> np.ndarray:
@@ -183,43 +212,74 @@ class Demo:
 
     # ------------------------------------------------------------ controllers
     @torch.inference_mode()
-    def plan_queue(self, collect_paths: bool = False):
+    def plan_queue(self, host_tick: bool = False):
         """The plan of tick ``t`` as a device queue: (queue (max_queue,)
         actions padded with -1, qlen 0-d, planner result or None). The
-        one plan function of both the host ``tick`` and ``run_round``."""
-        t, jumps, steps = self.t, self.args.jumps, self.steps
-        o = env_lib.render(self.lut, self.env)
-        idx = torch.arange(self.max_queue, device=self.device)
+        one plan function of both the host ``tick`` (``host_tick``: the
+        ``mcts`` planner collects the paths, the other controllers plan op
+        by op) and ``run_round`` (on a card one graph replay, ``mcts``
+        aside). The action uniform and the G estimate's noise are drawn
+        first, as the graph's inputs."""
+        t = self.t
         self.plans_made += 1
-        if self.method == "habit":
-            q_pi = self.agent.habitual_net(o)[0]
-            pi = choose(q_pi / q_pi.sum(), self.draws.uniform(t))
-            self._shown = {"choice": q_pi}
-            return torch.where(idx < steps, pi, -1), torch.tensor(steps, device=self.device), None
         if self.method == "mcts":
-            res = self.planners[collect_paths](o, self.draws.plan_seed_path(t))
+            jumps = self.args.jumps
+            o = env_lib.render(self.lut, self.env)
+            idx = torch.arange(self.max_queue, device=self.device)
+            res = self.planners[host_tick](o, self.draws.plan_seed_path(t))
             path, length = res.actions[0], res.lengths[0]
             src = path[torch.clamp(idx // jumps, max=path.shape[0] - 1)]
             return torch.where(idx // jumps < length, src, -1), length * jumps, res
+        u = torch.tensor(self.draws.uniform(t), dtype=torch.float64, device=self.device)
+        draws = None
+        if self.method != "habit":  # calculate_G_4_repeated's draws at batch 1
+            draws = efe.draw_rollout(self.agent, 1, self.agent.pi_dim,
+                                     self.draws.plan_generator(t), self.device, self.steps,
+                                     self.mean, 10, self.mean)
+        inputs = (self.env, u, draws)
+        if self.graphed and not host_tick:
+            key = ("plan", self.method, self.steps, self.mean, self.temperature,
+                   self.args.jumps)
+            out = self.graphs.call(self._plan_body, inputs,
+                                   deps=lambda: graphs_lib.module_deps(self.agent) + [self.lut],
+                                   key=key)
+        else:
+            out = self._plan_body(*inputs)
+        queue, qlen, self._shown = out
+        return queue, qlen, None
+
+    def _plan_body(self, env: env_lib.EnvState, u: torch.Tensor,
+                   draws: Optional[efe.RolloutDraws]):
+        """The device work of a ``habit``, ``ai``, ``t1`` or ``t12`` plan:
+        (queue, qlen, what the host tick shows). ``u``: the action draw
+        (0-d float64); ``draws``: the G estimate's noise."""
+        jumps, steps = self.args.jumps, self.steps
+        o = env_lib.render(self.lut, env)
+        idx = torch.arange(self.max_queue, device=self.device)
+        if self.method == "habit":
+            q_pi = self.agent.habitual_net(o)[0]
+            pi = choose(q_pi / q_pi.sum(), u)
+            qlen = torch.full((), steps, dtype=torch.long, device=self.device)
+            return torch.where(idx < steps, pi, -1), qlen, {"choice": q_pi}
         # ai / t1 / t12: k-step EFE softmax agents. G accumulates over
         # ``steps``: the softmax sees the per-step average.
         G, terms, _ = efe.calculate_G_4_repeated(
-            self.agent, o, self.draws.plan_generator(t), steps=steps, calc_mean=self.mean,
-            samples=10)
+            self.agent, o, steps=steps, calc_mean=self.mean, samples=10, draws=draws)
         G, t0, t1 = G[0] / steps, -terms[0][0] / steps, terms[1][0] / steps
         x = {"ai": -G, "t1": -t0, "t12": -(t0 + t1)}[self.method]
         e = torch.exp((x - x.max()) / self.temperature)
         choices = e / e.sum()
-        self._shown = {"choice": choices, "G": G, "terms": [t0, t1, terms[2][0] / steps]}
-        pi = choose(choices, self.draws.uniform(t))
+        pi = choose(choices, u)
         n = steps * jumps
-        return torch.where(idx < n, pi, -1), torch.tensor(n, device=self.device), None
+        qlen = torch.full((), n, dtype=torch.long, device=self.device)
+        return (torch.where(idx < n, pi, -1), qlen,
+                {"choice": choices, "G": G, "terms": [t0, t1, terms[2][0] / steps]})
 
     def _plan(self):
         if self.method not in CONTROLLERS:  # manual
             self.executing_steps = []
             return
-        queue, qlen, res = self.plan_queue(collect_paths=True)
+        queue, qlen, res = self.plan_queue(host_tick=True)
         self.executing_steps = queue[:int(qlen)].tolist()
         if self.method == "habit":
             self.last_info = f"habit Qpi={np.round(self._shown['choice'].cpu().numpy(), 2)}"
@@ -291,23 +351,17 @@ class Demo:
         self.executing_steps = []
         queue = torch.full((self.max_queue,), -1, dtype=torch.long, device=self.device)
         qlen = torch.zeros((), dtype=torch.long, device=self.device)
-        trace = []
+        trace = torch.zeros((DURATION_OF_ROUND,), dtype=torch.float32, device=self.device)
+        k = torch.zeros((), dtype=torch.long, device=self.device)
         for _ in range(DURATION_OF_ROUND):
             if int(qlen) == 0:
                 queue, qlen, _ = self.plan_queue()
-            stepped = qlen > 0
-            a = torch.clamp(queue[:1], min=0)
-            new, scored = env_lib.step(self.env, a, respawn=self._respawn())
-            self.env = env_lib.EnvState(
-                torch.where(stepped, new.latents, self.env.latents),
-                torch.where(stepped, new.score, self.env.score),
-                torch.where(stepped, new.last_r, self.env.last_r))
-            flush = stepped & scored[0]
-            qlen = torch.where(flush, 0, torch.clamp(qlen - stepped.long(), min=0))
-            queue = torch.roll(queue, -1)
-            trace.append(self.env.score[0])
+            inputs = (self.env, queue, qlen, trace, k, self._respawn())
+            out = (self.graphs.call(_round_tick, inputs, key=("tick",)) if self.graphed
+                   else _round_tick(*inputs))
+            self.env, queue, qlen, trace, k = out
             self.t += 1
-        return torch.stack(trace)
+        return trace
 
     # ------------------------------------------------------------- keyboard
     def on_key(self, k: str):

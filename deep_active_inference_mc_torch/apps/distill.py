@@ -22,7 +22,8 @@ and the distill steps small. ``--patience N`` stops after N readouts
 without a new best (0: run all ``--iters``). ``--bf16`` runs the
 networks' forwards in bfloat16 (the planner scores G in float32; the habit
 net's weights and Adam stay float32). The default device is ``cuda``;
-``--device cpu`` runs on the CPU.
+``--device cpu`` runs on the CPU. On a card each phase's planner and its
+replay steps replay captured CUDA graphs (``train/distill.py``).
 """
 
 from __future__ import annotations

@@ -26,9 +26,11 @@ The default device is ``cuda``, and a machine without a card raises;
 defaults (cuDNN may use TF32 for float32 convolutions on a card).
 ``--bf16`` runs the networks' forwards in bfloat16 (weights, Adam and the
 losses' reductions stay float32). On a card without a mesh the epoch's
-rounds and the per-epoch sweeps replay captured CUDA graphs, as the JAX
-trainer jits its epoch (``train/loop.py``, ``train/sweep.py``); the first
-epoch of a run pays one eager round and the capture.
+rounds, the per-epoch eval pass, the sweeps and distillation's replay
+steps replay captured CUDA graphs, as the JAX trainer jits its epoch, eval
+and replay step (``train/loop.py``, ``train/evaluate.py``,
+``train/sweep.py``, ``train/distill.py``); the first epoch of a run pays
+one eager step of each and the capture.
 
 Multi-device (``parallel/mesh.py``): ``--mesh_shape N`` trains on N ranks,
 ``--tp T`` of them per Megatron tensor-parallel group (N/T data-parallel
@@ -199,7 +201,9 @@ def _train(mesh, cfg: Config, known: argparse.Namespace) -> dict:
         state = mesh_lib.shard_train_state(state, mesh, cfg)
 
     epoch_fn = train_loop.make_epoch_fn(cfg, lut, cfg.rounds, mesh)
-    eval_fn = make_eval(eval_agent, cfg, lut)
+    # On a card the eval pass replays a graph (gloo cannot be captured:
+    # a mesh's runs op by op); its outputs are copies, which the figures read.
+    eval_fn = make_eval(eval_agent, cfg, lut, graphed=None if mesh is None else False)
     # Per-epoch behavioural scores: an EFE-agent sweep and a cheap
     # habit-controller sweep (512 envs x 100 macro steps by default, large
     # enough that the series is a learning curve and not noise).

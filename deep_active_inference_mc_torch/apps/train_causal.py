@@ -11,7 +11,10 @@ line (with ``cf_effect``) and the traversal and reconstruction figures.
 Runs go to ``<out_root>/figs_causal_model_<...>``. ``--resume`` continues
 from the newest checkpoint, optimizer state and random stream included;
 SIGINT and SIGTERM write a resumable checkpoint and exit with code 130.
-The default device is ``cuda``; ``--device cpu`` runs on the CPU.
+The default device is ``cuda``; ``--device cpu`` runs on the CPU. On a
+card the epochs' rounds, the eval pass and the traversals' decode (one
+shape per epoch, as the JAX CLI jits ``decode_fn``) replay captured CUDA
+graphs (``train/causal.py``); on the CPU they run op by op.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from deep_active_inference_mc_torch.train import causal as causal_lib
 from deep_active_inference_mc_torch.utils import checkpoint as ckpt
 from deep_active_inference_mc_torch.utils import stats as stats_lib
 from deep_active_inference_mc_torch.utils import compcache
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 from deep_active_inference_mc_torch.utils.device import resolve_device, seeded_generator
 from deep_active_inference_mc_torch.viz import generate_traversals as traversals_lib
 from deep_active_inference_mc_torch.viz import nhwc
@@ -76,10 +80,15 @@ def main(argv=None) -> dict:
 
     epoch_fn = causal_lib.make_causal_epoch(cfg, lut, cfg.rounds)
     eval_fn = causal_lib.make_causal_eval(cfg, lut)
+    decode_graphs = graphs_lib.Graphs() if graphs_lib.use_graphs(None, device) else None
 
     @torch.no_grad()
     def decode(s):
-        return nhwc(model.decode(torch.as_tensor(s, device=device)))
+        s = torch.as_tensor(s, device=device)
+        if decode_graphs is None:
+            return nhwc(model.decode(s))
+        return nhwc(decode_graphs.call(model.decode, (s,),
+                                       deps=lambda: graphs_lib.module_deps(model)))
 
     epoch_s = []
     start_time = time.time()
@@ -135,7 +144,9 @@ def main(argv=None) -> dict:
         ckpt.save_all(folder_chp, state, stats, gen, script_file=__file__)
         raise SystemExit(130)
     return {"state": state, "stats": stats, "folder": folder, "start_epoch": start_epoch,
-            "epoch_seconds": epoch_s}
+            "epoch_seconds": epoch_s, "graphs": {"epoch": epoch_fn.graphs,
+                                                 "eval": eval_fn.graphs,
+                                                 "decode": decode_graphs}}
 
 
 if __name__ == "__main__":

@@ -112,9 +112,7 @@ def env_step_run(lut: torch.Tensor, state: env_lib.EnvState, seed: int, iters: i
 
 def _graphs(device: torch.device, graphed: Optional[bool]) -> Optional[graphs_lib.Graphs]:
     """The runs' graphs (default: on a card), or None to run op by op."""
-    if graphed is None:
-        graphed = device.type == "cuda"
-    return graphs_lib.Graphs() if graphed else None
+    return graphs_lib.Graphs() if graphs_lib.use_graphs(graphed, device) else None
 
 
 @torch.inference_mode()

@@ -798,10 +798,6 @@ def _search(agent, frames: torch.Tensor, p: MCTSParams, seed_path, collect_paths
     return res._replace(all_paths=paths[0], all_paths_G=paths[1], tree=tree_out)
 
 
-def _use_graphs(graphed: Optional[bool], frames: torch.Tensor) -> bool:
-    return frames.is_cuda if graphed is None else graphed
-
-
 @torch.inference_mode()
 def active_inference_mcts(agent: ActiveInferenceAgent, frames: torch.Tensor, p: MCTSParams,
                           seed_path: Optional[Sequence[int]] = None,
@@ -823,7 +819,7 @@ def active_inference_mcts(agent: ActiveInferenceAgent, frames: torch.Tensor, p: 
         than once builds ``make_jit_planner``, which keeps its graphs across
         calls. True on the CPU raises.
     """
-    graphs = graphs_lib.Graphs() if _use_graphs(graphed, frames) else None
+    graphs = graphs_lib.Graphs() if graphs_lib.use_graphs(graphed, frames) else None
     return _search(agent, frames, p, seed_path, collect_paths, return_tree, draws, graphs)
 
 
@@ -843,7 +839,7 @@ def make_jit_planner(agent: ActiveInferenceAgent, p: MCTSParams, collect_paths: 
     def plan(frames: torch.Tensor, seed_path: Optional[Sequence[int]] = None,
              draws: Optional[SearchDraws] = None) -> MCTSResult:
         return _search(agent, frames, p, seed_path, collect_paths, False, draws,
-                       graphs if _use_graphs(graphed, frames) else None)
+                       graphs if graphs_lib.use_graphs(graphed, frames) else None)
 
     plan.graphs = graphs
     return plan
@@ -909,7 +905,7 @@ def make_bucketed_planner(agent: ActiveInferenceAgent, p: MCTSParams,
     def plan(frames: torch.Tensor, seed_path: Sequence[int]) -> MCTSResult:
         B0, A = frames.shape[0], agent.pi_dim
         dev = frames.device
-        g = graphs if _use_graphs(graphed, frames) else None
+        g = graphs if graphs_lib.use_graphs(graphed, frames) else None
         plan.bucket_trace = [B0]
         gidx = np.arange(B0)  # bucket row -> original env row (-1 = pad)
         recorded = []

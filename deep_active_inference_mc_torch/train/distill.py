@@ -20,12 +20,20 @@ forwards under ``--bf16``; the planner scores G in float32). Every
 draw can be injected (``CollectDraws``, ``DistillDraws``): the env's
 randomize and respawns, the planner's noise, the permutations and the
 encoder's noise.
+
+The JAX phase jits its replay step and drives it from the host. Here, on a
+card, the phase's ``distill_passes x steps_per_pass`` replay steps are one
+``Graphs.scan`` (``utils/graphs.py``): one captured step replayed per step,
+each step's minibatch and noise (``draw_step``) made eagerly in the order
+the op-by-op loop makes them, the top weights and Adam (``capturable`` on a
+card) updated in place. On the CPU, under a mesh or with ``graphed=False``
+the same steps run op by op.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,6 +43,7 @@ from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 from deep_active_inference_mc_torch.train import loop as train_loop
 from deep_active_inference_mc_torch.train import losses
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 
 
 def visit_targets(root_N: torch.Tensor, temp: float = 1.0) -> torch.Tensor:
@@ -67,6 +76,17 @@ class StepDraws:
     enc_masks: Optional[Sequence[torch.Tensor]] = None
 
 
+def draw_step(agent: ActiveInferenceAgent, cfg: Config, rows: int,
+              generator: torch.Generator, device) -> StepDraws:
+    """The noise of one replay step of ``rows`` records, drawn as
+    ``Distiller.dstep`` draws it: the encoder's keep-masks (under
+    ``vae_train_dropout``), then its state draw."""
+    masks = (agent.down.encoder.draw_masks(rows, generator, device)
+             if cfg.vae_train_dropout else None)
+    eps = torch.randn((rows, agent.s_dim), generator=generator, device=device)
+    return StepDraws(eps, masks)
+
+
 @dataclasses.dataclass
 class DistillDraws:
     """Noise of a whole phase: the collect's, one permutation per pass and
@@ -84,6 +104,8 @@ class Distiller:
 
     def __init__(self, agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor,
                  graphed: Optional[bool] = None):
+        """``graphed``: the planner's and the replay's (None: graphs on a
+        card; a mesh passes False)."""
         self.agent = agent
         self.cfg = cfg
         self.lut = lut
@@ -93,6 +115,8 @@ class Distiller:
             max_depth=16)
         # The top Adam updates the weights in place: its graphs stay valid.
         self.planner = mcts_lib.make_jit_planner(agent, self.mcts_params, graphed=graphed)
+        self.graphed = graphs_lib.use_graphs(graphed, lut)
+        self.graphs = graphs_lib.Graphs()  # the replay's
 
     def _render(self, env: env_lib.EnvState) -> torch.Tensor:
         return env_lib.render_obs(self.lut, env, self.cfg.resolution, self.cfg.colour_channels)
@@ -155,6 +179,40 @@ class Distiller:
             match = (torch.argmax(q_pi, -1) == torch.argmax(log_target, -1)).float().mean()
         return F.detach(), match
 
+    def replay(self, top_opt: torch.optim.Optimizer, lat: torch.Tensor, lr: torch.Tensor,
+               log_target: torch.Tensor, generator: Optional[torch.Generator] = None,
+               draws: Optional[DistillDraws] = None) -> torch.Tensor:
+        """The phase's replay steps over the records: per pass one
+        permutation, then ``dstep`` on each minibatch of it. Returns each
+        step's (F, match), (steps, 2) on the device."""
+        cfg = self.cfg
+        n = lat.shape[0]
+        bs = min(cfg.distill_batch, n)
+        steps_per_pass = n // bs
+
+        def inputs():  # drawn as the op-by-op loop draws, step by step
+            step = 0
+            for p in range(cfg.distill_passes):
+                perm = (torch.randperm(n, generator=generator, device=lat.device)
+                        if draws is None else draws.perms[p])
+                for i in range(steps_per_pass):
+                    idx = perm[i * bs:(i + 1) * bs]
+                    d = (draw_step(self.agent, cfg, bs, generator, lat.device)
+                         if draws is None else draws.steps[step])
+                    yield (lat[idx], lr[idx], log_target[idx]), d
+                    step += 1
+
+        def body(carry, x):
+            (latents, last_r, target), d = x
+            return carry, torch.stack(self.dstep(top_opt, latents, last_r, target, draws=d))
+
+        steps = cfg.distill_passes * steps_per_pass
+        if not self.graphed:
+            return graphs_lib.eager_scan(body, (), inputs(), steps)[1]
+        deps = lambda: (graphs_lib.module_deps(self.agent) + graphs_lib.optimizer_deps(top_opt)
+                        + [self.lut])
+        return self.graphs.scan(body, (), inputs(), steps, deps=deps)[1]
+
     def __call__(self, state: train_loop.TrainState,
                  generator: Optional[torch.Generator] = None,
                  draws: Optional[DistillDraws] = None
@@ -176,27 +234,14 @@ class Distiller:
         # Teacher sharpness diagnostic: mean entropy of the visit targets.
         ent = torch.mean(-torch.sum(target * log_target, dim=-1))
 
-        top_opt = state.opts["top"]
-        F_match: List[torch.Tensor] = []
-        step = 0
-        for p in range(cfg.distill_passes):
-            perm = (torch.randperm(n, generator=generator, device=lat.device)
-                    if draws is None else draws.perms[p])
-            for i in range(steps_per_pass):
-                idx = perm[i * bs:(i + 1) * bs]
-                F, match = self.dstep(top_opt, lat[idx], lr[idx], log_target[idx], generator,
-                                      None if draws is None else draws.steps[step])
-                if step == 0:
-                    F_match.append(torch.stack([F, match]))
-                step += 1
-        F_match.append(torch.stack([F, match]))
-        (F_first, match_first), (F_last, match_last) = torch.stack(F_match).tolist()
+        table = self.replay(state.opts["top"], lat, lr, log_target, generator, draws)
+        (F_first, match_first), (F_last, match_last) = torch.stack([table[0], table[-1]]).tolist()
         metrics = {
             "distill_kl_first": F_first,
             "distill_kl_last": F_last,
             "distill_match_first": match_first,
             "distill_match_last": match_last,
             "distill_target_entropy": float(ent),
-            "distill_steps": float(step),
+            "distill_steps": float(table.shape[0]),
         }
         return state, metrics

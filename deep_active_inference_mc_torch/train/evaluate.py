@@ -11,6 +11,12 @@ card: 4 frames batches of ``test_size`` and the probe's 96).
 averages the two middle values; ``correction=0`` and ``torch.quantile``
 keep both conventions. The forwards compute in the agent's dtype (bf16
 under ``--bf16``); every head, and so every loss and metric, is float32.
+
+The JAX pass is one jitted function; here, on a card, it is one captured
+CUDA graph (``utils/graphs.py``'s ``Graphs.call``), its noise drawn
+eagerly (``draw_eval``, the order in which the pass draws as it goes) and
+copied into the graph's buffers; its outputs are copied out. On the CPU,
+or with ``graphed=False``, the same pass runs op by op.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from deep_active_inference_mc_torch.infer import efe
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.infer.precision import OmegaParams, PrecisionState
 from deep_active_inference_mc_torch.train import losses
+from deep_active_inference_mc_torch.utils import graphs as graphs_lib
 
 N_PLOT = 7  # frames per reconstruction strip
 
@@ -42,7 +49,7 @@ def eval_losses(agent: ActiveInferenceAgent, cfg: Config, precision: PrecisionSt
     if draws is None:
         draws = losses.draw_staged(agent, o0.shape[0], generator, o0.device, vae_do)
     omega_params = OmegaParams(cfg.var_a, cfg.var_b, cfg.var_c, cfg.var_d)
-    omega = torch.tensor(omega_params.eval_omega, dtype=torch.float32, device=o0.device)
+    omega = torch.full((), omega_params.eval_omega, dtype=torch.float32, device=o0.device)
     log_Ppi = torch.log(pi0 + 1e-15)
 
     s0, _, _ = agent.encode_with_sample(o0, eps=draws.eps_s0, masks=draws.enc0_masks)
@@ -214,42 +221,85 @@ def edge_discrimination_probe(agent: ActiveInferenceAgent, cfg: Config, lut: tor
     }
 
 
-def make_eval(agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor
-              ) -> Callable[[PrecisionState, torch.Generator], Dict[str, torch.Tensor]]:
-    """``evaluate(precision, generator, draws=None)``: one eval pass
-    (``draws`` injects its noise) returning the full
-    epoch stats payload, tensors on the device (the caller transfers the
-    series it keeps), and the first ``N_PLOT`` frames of the eval batch
-    (``o0``, ``o1``, ``po1``) and of the reward probe (``*_probe``) for the
-    figures."""
+def draw_eval(agent: ActiveInferenceAgent, cfg: Config, generator: torch.Generator,
+              device) -> EvalDraws:
+    """The noise of one eval pass over ``test_size`` envs, drawn in the
+    order ``eval_pass`` draws it as it goes: the envs' reset (which the
+    batch's randomize replaces), the batch, the three losses, the reward
+    probe (its envs, respawns, encoder draw, transition keep-masks and
+    transition draw) and the edge probe's G estimate."""
+    n = cfg.test_size
+    env_lib.reset(generator, n, device)
+    batch = data_lib.draw_random(cfg, n, generator, device)
+    staged = losses.draw_staged(agent, n, generator, device, bool(cfg.vae_train_dropout))
+    normal = lambda: torch.randn((n, agent.s_dim), generator=generator, device=device)
+    probe_env = env_lib.draw_randomize(generator, n, device)
+    respawns = env_lib.sample_latents(generator, (cfg.repeats, n), device)
+    eps_enc = normal()
+    masks = agent.mid.draw_masks(n, generator, device)
+    probe = ProbeDraws(probe_env, respawns, eps_enc, masks, normal())
+    rows = edge_probe_latents(device).shape[0]
+    edge = efe.draw_rollout(agent, rows, rows * agent.pi_dim, generator, device, steps=1,
+                            calc_mean=True, samples=1, mean_estimator=True)
+    return EvalDraws(batch, staged, probe, edge)
 
-    @torch.no_grad()
+
+@torch.no_grad()
+def eval_pass(agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor,
+              precision: PrecisionState, generator: Optional[torch.Generator] = None,
+              draws: Optional[EvalDraws] = None) -> Dict[str, torch.Tensor]:
+    """One eval pass, drawing from ``generator`` as it goes unless
+    ``draws`` injects its noise: the full epoch stats payload, tensors on
+    the device (the caller transfers the series it keeps), and the first
+    ``N_PLOT`` frames of the eval batch (``o0``, ``o1``, ``po1``) and of
+    the reward probe (``*_probe``) for the figures."""
+    d = draws
+    if d is None:
+        env = env_lib.reset(generator, cfg.test_size, lut.device)
+    else:  # the batch's randomize replaces every field
+        env = env_lib.EnvState(*d.batch.env)
+    _, o0, o1, pi0, _, S0_real, _ = data_lib.make_batch_random(
+        cfg, env, lut, generator, None if d is None else d.batch)
+    metrics = eval_losses(agent, cfg, precision, o0, o1, pi0, generator,
+                          None if d is None else d.staged)
+    mse_r, deep_mse, o0p, o1p, po1p = reward_transition_probe(
+        agent, cfg, lut, cfg.test_size, generator, None if d is None else d.probe)
+    metrics["mse_r"] = mse_r
+    metrics["deep_mse_o"] = deep_mse
+    metrics.update(edge_discrimination_probe(agent, cfg, lut, generator,
+                                             None if d is None else d.edge))
+    metrics["S0_real"] = S0_real
+    # Frames for the 7-sample reconstruction strips only, sliced on the
+    # device so the host copy stays small: the eval batch's o0, o1 and
+    # decoded o1, and the reward-imagination probe's real pre/post
+    # scoring frames beside the imagined one.
+    metrics["o0"], metrics["o1"] = o0[:N_PLOT], o1[:N_PLOT]
+    metrics["po1"] = metrics["po1"][:N_PLOT]
+    metrics["o0_probe"], metrics["o1_probe"] = o0p[:N_PLOT], o1p[:N_PLOT]
+    metrics["po1_probe"] = po1p[:N_PLOT]
+    return metrics
+
+
+def make_eval(agent: ActiveInferenceAgent, cfg: Config, lut: torch.Tensor,
+              graphed: Optional[bool] = None
+              ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``evaluate(precision, generator=None, draws=None)``: one
+    ``eval_pass`` on ``draws``, or on ``draw_eval``'s from ``generator``.
+    ``graphed`` (default: on a card) replays the pass as one captured CUDA
+    graph and returns fresh copies of its outputs; False runs it op by op.
+    A graphed eval on the CPU raises."""
+    graphed = graphs_lib.use_graphs(graphed, lut)
+    graphs = graphs_lib.Graphs()
+    deps = lambda: graphs_lib.module_deps(agent) + [lut]
+    body = lambda precision, d: eval_pass(agent, cfg, lut, precision, draws=d)
+
     def evaluate(precision: PrecisionState, generator: Optional[torch.Generator] = None,
                  draws: Optional[EvalDraws] = None):
-        d = draws
-        if d is None:
-            env = env_lib.reset(generator, cfg.test_size, lut.device)
-        else:  # the batch's randomize replaces every field
-            env = env_lib.EnvState(*d.batch.env)
-        _, o0, o1, pi0, _, S0_real, _ = data_lib.make_batch_random(
-            cfg, env, lut, generator, None if d is None else d.batch)
-        metrics = eval_losses(agent, cfg, precision, o0, o1, pi0, generator,
-                              None if d is None else d.staged)
-        mse_r, deep_mse, o0p, o1p, po1p = reward_transition_probe(
-            agent, cfg, lut, cfg.test_size, generator, None if d is None else d.probe)
-        metrics["mse_r"] = mse_r
-        metrics["deep_mse_o"] = deep_mse
-        metrics.update(edge_discrimination_probe(agent, cfg, lut, generator,
-                                                 None if d is None else d.edge))
-        metrics["S0_real"] = S0_real
-        # Frames for the 7-sample reconstruction strips only, sliced on the
-        # device so the host copy stays small: the eval batch's o0, o1 and
-        # decoded o1, and the reward-imagination probe's real pre/post
-        # scoring frames beside the imagined one.
-        metrics["o0"], metrics["o1"] = o0[:N_PLOT], o1[:N_PLOT]
-        metrics["po1"] = metrics["po1"][:N_PLOT]
-        metrics["o0_probe"], metrics["o1_probe"] = o0p[:N_PLOT], o1p[:N_PLOT]
-        metrics["po1_probe"] = po1p[:N_PLOT]
-        return metrics
+        if draws is None:
+            draws = draw_eval(agent, cfg, generator, lut.device)
+        if not graphed:
+            return body(precision, draws)
+        return graphs.call(body, (precision, draws), deps=deps)
 
+    evaluate.graphs = graphs
     return evaluate

@@ -43,9 +43,19 @@ loop's graphs share one memory pool: their replays never overlap, and
 every output lands in buffers allocated outside the pool.
 ``eager_while_loop`` is its op-by-op twin.
 
-``Graphs.scan`` and ``Graphs.while_loop`` raise on CPU tensors: on the CPU
-the callers run the same body through ``eager_scan`` or
-``eager_while_loop``. A capture or a replay that fails raises.
+``Graphs.call(fn, inputs, deps, key)`` is the counterpart of ``jax.jit``
+on a function with no loop (an eval pass, a demo plan, a decode): the
+first call runs ``fn(*inputs)`` once eagerly on the side stream, which is
+its result, and captures it; a later call with the same signature (``fn``'s
+code, the inputs' shapes and dtypes, the backend flags, ``key`` and the
+addresses of ``deps``) copies its inputs into the graph's static buffers, replays, and
+returns the outputs copied out of the graph's buffers into fresh tensors.
+
+``Graphs.scan``, ``Graphs.while_loop`` and ``Graphs.call`` raise on CPU
+tensors: on the CPU the callers run the same body through ``eager_scan``,
+``eager_while_loop`` or a plain call. A capture or a replay that fails
+raises. ``use_graphs(graphed, device)`` is the callers' one rule for their
+``graphed`` option: None means graphs on a card and op by op elsewhere.
 """
 
 from __future__ import annotations
@@ -66,8 +76,8 @@ Stop = Callable[[Any], torch.Tensor]  # carry -> 0-d bool on the carry's device
 
 
 # ---------------------------------------------------------------- trees
-# A tree is a tensor, None, a plain scalar, or a dataclass, list or tuple
-# of trees: the draws and states of the port.
+# A tree is a tensor, None, a plain scalar, or a dataclass, list, tuple or
+# dict of trees: the draws, states and outputs of the port.
 
 def _flatten(tree, leaves: List[torch.Tensor]):
     """Append ``tree``'s tensors to ``leaves``; return its spec (types,
@@ -82,6 +92,8 @@ def _flatten(tree, leaves: List[torch.Tensor]):
                                      for f in dataclasses.fields(tree))
     if isinstance(tree, (list, tuple)):
         return (type(tree),) + tuple(_flatten(v, leaves) for v in tree)
+    if isinstance(tree, dict):
+        return (dict, tuple(tree)) + tuple(_flatten(v, leaves) for v in tree.values())
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
 
 
@@ -103,6 +115,8 @@ def rebuild(tree, leaves: Iterable[torch.Tensor]):
                                                 for f in dataclasses.fields(node)})
         if isinstance(node, (list, tuple)):
             return type(node)(go(v) for v in node)
+        if isinstance(node, dict):
+            return {k: go(v) for k, v in node.items()}
         return node
 
     return go(tree)
@@ -116,6 +130,13 @@ def _copy_(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
         groups[d.dtype][1].append(s)
     for d, s in groups.values():
         torch._foreach_copy_(d, s)
+
+
+def _copied(src: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Fresh copies of ``src``, one multi-tensor copy per dtype."""
+    out = [torch.empty_like(t) for t in src]
+    _copy_(out, src)
+    return out
 
 
 def _copy_changed_(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
@@ -223,6 +244,7 @@ class _Graph:
     launches: collections.Counter  # kernel launches per replay
     flag: Optional[torch.Tensor] = None  # a loop's stop flag after a replay
     flags: Optional[HostSlots] = None  # a loop's host slots
+    out: Any = None  # a call's outputs in the graph's buffers
 
 
 class Graphs:
@@ -245,33 +267,37 @@ class Graphs:
         """``eager_scan(body, carry, xs, n)`` as graph replays. ``deps()``:
         the tensors that ``body`` reads or updates in place besides
         ``carry`` and its input (called again after the warm-up step, which
-        may create some: an optimizer's state). Returns fresh tensors."""
+        may create some: an optimizer's state). The carry may hold no
+        tensor when the inputs do (a body that only updates ``deps``).
+        Returns fresh tensors."""
         leaves: List[torch.Tensor] = []
         spec = _flatten(carry, leaves)
-        if not leaves or not all(t.is_cuda for t in leaves):
-            raise ValueError("Graphs.scan captures CUDA tensors only; on the CPU run the "
-                             "body through eager_scan")
-        xs = iter(xs)
         if n == 0:
             return carry, None
+        xs = iter(xs)
+        x = next(xs)
+        tensors = leaves + leaves_of(x)
+        if not tensors or not all(t.is_cuda for t in tensors):
+            raise ValueError("Graphs.scan captures CUDA tensors only; on the CPU run the "
+                             "body through eager_scan")
         sig = (spec, n, _backend_flags())
         g = self._graphs.get(sig)
-        done = 0
         if g is not None and g.deps == _addresses(deps):
             _copy_(g.carry, leaves)
             g.t.zero_()
+            self._feed(g, x)
         else:
-            g = self._graphs[sig] = self._capture(body, carry, leaves, xs, n, deps)
-            done = 1
-        for _ in range(done, n):
+            g = self._graphs[sig] = self._capture(body, carry, leaves, x, n, deps,
+                                                  tensors[0].device)
+        for _ in range(1, n):
             self._feed(g, next(xs))
         out = rebuild(carry, [c.clone() for c in g.carry])
         return out, None if g.ys is None else g.ys.clone()
 
-    def _capture(self, body: Body, carry, leaves, xs, n: int, deps) -> _Graph:
-        """A scan's graph: its first step is the warm-up."""
+    def _capture(self, body: Body, carry, leaves, x, n: int, deps, device) -> _Graph:
+        """A scan's graph: its first step, on input ``x``, is the warm-up."""
         static = [t.clone() for t in leaves]
-        t = torch.zeros((1,), dtype=torch.long, device=static[0].device)
+        t = torch.zeros((1,), dtype=torch.long, device=device)
         ys = None
 
         def step(x):
@@ -282,7 +308,7 @@ class Graphs:
             ys.index_copy_(0, t, y.unsqueeze(0))
             t.add_(1)
 
-        x = next(xs)  # drawn on the main stream, which the warm-up's stream waits for
+        # x was drawn on the main stream, which the warm-up's stream waits for.
         y = _warm_up(lambda: step(x))
         if y is not None:
             ys = torch.empty((n,) + tuple(y.shape), dtype=y.dtype, device=y.device)
@@ -343,6 +369,32 @@ class Graphs:
         return _Graph(graph, _addresses(deps), static, x_spec, static_x, None, None, launches,
                       flag, flags)
 
+    def call(self, fn: Callable[..., Any], inputs: Sequence[Any],
+             deps: Callable[[], Sequence[torch.Tensor]] = tuple, key: Any = ()):
+        """``fn(*inputs)`` as a graph replay (the module's docstring).
+        ``deps`` as ``scan``'s; ``key``: the static values that ``fn``
+        reads besides its inputs and ``fn``'s code (a lambda made anew on
+        each call keeps its graph; two functions never share one). The first call of
+        a signature returns the eager warm-up's outputs, a replay fresh
+        copies of the graph's."""
+        leaves: List[torch.Tensor] = []
+        spec = _flatten(tuple(inputs), leaves)
+        if not leaves or not all(t.is_cuda for t in leaves):
+            raise ValueError("Graphs.call captures CUDA tensors only; on the CPU call the "
+                             "function itself")
+        sig = ("call", getattr(fn, "__code__", fn), spec, key, _backend_flags())
+        g = self._graphs.get(sig)
+        if g is not None and g.deps == _addresses(deps):
+            self._feed(g, tuple(inputs))
+            return rebuild(g.out, _copied(leaves_of(g.out)))
+        out = _warm_up(lambda: fn(*inputs))
+        box = []
+        graph, x_spec, static_x, launches = self._capture_step(
+            lambda x: box.append(fn(*x)), tuple(inputs))
+        self._graphs[sig] = _Graph(graph, _addresses(deps), [], x_spec, static_x, None, None,
+                                   launches, out=box[0])
+        return out
+
     def _capture_step(self, step: Callable[[Any], Any], x, pool=None):
         """Capture ``step`` fed static copies of ``x``'s tensors: (graph,
         ``x``'s spec, the static inputs, kernel launches per replay)."""
@@ -381,10 +433,18 @@ def _warm_up(run: Callable[[], Any]):
     side.wait_stream(main)
     with torch.cuda.stream(side):
         out = run()
-        if isinstance(out, torch.Tensor):
-            out.record_stream(main)
+        for t in leaves_of(out):
+            t.record_stream(main)
     main.wait_stream(side)
     return out
+
+
+def use_graphs(graphed: Optional[bool], device) -> bool:
+    """Whether a path runs its graphs: ``graphed``, or where it is None,
+    whether ``device`` (a ``torch.device`` or a tensor) is a card."""
+    if graphed is not None:
+        return graphed
+    return getattr(device, "device", device).type == "cuda"
 
 
 def _addresses(deps: Callable[[], Sequence[torch.Tensor]]) -> tuple:
