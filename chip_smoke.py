@@ -764,8 +764,9 @@ def phase_train(torch, smi: str, args, out_root: str) -> dict:
             ms_round)
 
 
-def card_vs_cpu_inputs(torch):
-    """The CPU agent and the injected noise of phase 5 (seeded)."""
+def card_vs_cpu_inputs(torch, network: str = ""):
+    """The CPU agent (a seeded init, or ``network``'s weights) and the
+    injected noise of phase 5 (seeded)."""
     from deep_active_inference_mc_torch.apps import sweep as sweep_app
     from deep_active_inference_mc_torch.config import Config
     from deep_active_inference_mc_torch.envs import dsprites as env_lib
@@ -773,7 +774,7 @@ def card_vs_cpu_inputs(torch):
 
     cpu = torch.device("cpu")
     cfg = Config()
-    agent = sweep_app.build_agent(cfg, "", cpu)
+    agent = sweep_app.build_agent(cfg, network, cpu)
     g = torch.Generator().manual_seed(4)
     B = CARD_VS_CPU_ENVS
     return agent, dict(
@@ -808,8 +809,8 @@ def forwards(torch, agent, inputs: dict, d) -> dict:
         }
 
 
-def phase_card_vs_cpu(torch, dev) -> None:
-    agent_cpu, inputs = card_vs_cpu_inputs(torch)
+def phase_card_vs_cpu(torch, dev, network: str = "", tag: str = "card-vs-cpu") -> None:
+    agent_cpu, inputs = card_vs_cpu_inputs(torch, network)
     ref = forwards(torch, agent_cpu, inputs, torch.device("cpu"))
     agent_gpu = type(agent_cpu)().to(dev)
     agent_gpu.load_state_dict(agent_cpu.state_dict())
@@ -822,13 +823,14 @@ def phase_card_vs_cpu(torch, dev) -> None:
         tol = G_TOL if key.startswith("G") else NET_TOL
         got = strict[key].cpu()
         ok = torch.allclose(got, want, **tol)
-        print(f"[card-vs-cpu] {key} {tuple(want.shape)}: max |diff| "
+        print(f"[{tag}] {key} {tuple(want.shape)}: max |diff| "
               f"{(got - want).abs().max().item():.3e} with TF32 off "
               f"(rtol {tol['rtol']} atol {tol['atol']}: {'ok' if ok else 'FAIL'}); "
               f"{(loose[key].cpu() - want).abs().max().item():.3e} with the defaults "
               f"(cuDNN TF32 on)")
-        check(ok, f"card-vs-cpu {key} out of tolerance")
-    check(torch.equal(strict["frame"].cpu(), ref["frame"]), "K1 frame differs from the CPU's")
+        check(ok, f"{tag} {key} out of tolerance")
+    check(torch.equal(strict["frame"].cpu(), ref["frame"]), f"{tag}: K1 frame differs from the "
+          f"CPU's")
 
 
 def one_round(torch, agent_cpu, cfg, draws, d) -> dict:
@@ -2067,30 +2069,37 @@ FULL_LADDER = {
 }
 
 
-def committed_ladder() -> dict:
-    """label -> (mean, sem, envs) of every row of the committed ladder."""
-    rows = {}
-    for line in (ROOT / LADDER_LOG).read_text().splitlines():
-        if line.startswith("method="):
+def committed_ladder(log: Path = LADDER_LOG) -> dict:
+    """label -> (mean, sem, envs) of every row of a committed ladder. A row
+    is labelled by its ``method=`` field, or, where the log names its rows
+    in ``# sweep method=<label>`` lines (``eval_log_round4.txt``), by that
+    line."""
+    rows, label = {}, None
+    for line in (ROOT / log).read_text().splitlines():
+        if line.startswith("# sweep method="):
+            label = line.split("=", 1)[1].strip()
+        elif line.startswith("method="):
             f = line.split()
             score = line.split("score: ")[1].split()
-            rows[f[0][len("method="):]] = (float(score[0]), float(score[2]),
-                                           int(next(x for x in f if x.startswith("envs="))[5:]))
+            rows[label or f[0][len("method="):]] = (
+                float(score[0]), float(score[2]),
+                int(next(x for x in f if x.startswith("envs="))[5:]))
+            label = None
     return rows
 
 
-def flagship_ladder_rows(torch, smi: str, extra: list) -> dict:
-    """Ladder rows through the sweep CLI on the flagship at the committed
-    protocol (LADDER_ROWS, then the FULL_LADDER rows named in ``extra``),
-    each gated against its committed row. Returns K1's launch counts by
-    row."""
+def ladder_rows(torch, smi: str, network: Path, rows: dict, committed: dict, name: str,
+                keep: dict) -> dict:
+    """``rows`` (tag: (label in ``committed``, envs, the sweep CLI's flags,
+    TF32 off)) through the sweep CLI on ``network`` at the committed
+    protocol (seed 0, LADDER_MACRO_FULL macro steps, JUMPS jumps), each
+    gated against its committed row. Returns K1's launch counts by row, and
+    puts each row's result in ``keep``."""
     from deep_active_inference_mc_torch.apps import sweep as sweep_app
     from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
 
-    committed = committed_ladder()
-    base = ["-n", str(ROOT / FLAGSHIP), "--seed", "0", "--jumps", str(JUMPS),
+    base = ["-n", str(ROOT / network), "--seed", "0", "--jumps", str(JUMPS),
             "--macro", str(LADDER_MACRO_FULL)]
-    rows = dict(LADDER_ROWS, **{tag: FULL_LADDER[tag] for tag in extra})
     runs, misses = {}, []
     for tag, (label, envs, flags, off) in rows.items():
         mean_c, sem_c, envs_c = committed[label]
@@ -2102,14 +2111,14 @@ def flagship_ladder_rows(torch, smi: str, extra: list) -> dict:
         launches = dict(LAUNCHES)
         scores = out["scores"]
         check(bool(torch.isfinite(scores).all()) and tuple(scores.shape) == (envs,),
-              f"ladder {tag}: scores {tuple(scores.shape)} not all finite")
+              f"{name} ladder {tag}: scores {tuple(scores.shape)} not all finite")
         # K1 renders once per macro step that planned (mcts), else once per
         # macro step and env group.
         groups = -(-envs // int(flags[flags.index("--env_chunk") + 1])) \
             if "--env_chunk" in flags else 1
         want = len(log) if flags[1] == "mcts" else LADDER_MACRO_FULL * groups
         check(launches.get("render", 0) == want,
-              f"ladder {tag}: {launches.get('render', 0)} K1 launches, want {want}")
+              f"{name} ladder {tag}: {launches.get('render', 0)} K1 launches, want {want}")
         mean, sem = out["score_mean"], out["score_sem"]
         sigma = abs(mean - mean_c) / math.sqrt(sem ** 2 + sem_c ** 2)
         if sigma > LADDER_SIGMA:
@@ -2121,27 +2130,94 @@ def flagship_ladder_rows(torch, smi: str, extra: list) -> dict:
             plans = (f", {len(log)} planner calls over {sum(B for B, _, _, _ in log)} rows, "
                      f"{sum(dt for _, dt, _, _ in log) / iters * 1e3:.2f} ms per planner "
                      f"iteration, repeats_done mean {reps.mean():.2f}")
-        print(f"[flagship] ladder {tag}: {envs} envs x {LADDER_MACRO_FULL} macro x {JUMPS} jumps "
+        print(f"[{name}] ladder {tag}: {envs} envs x {LADDER_MACRO_FULL} macro x {JUMPS} jumps "
               f"(cuBLAS TF32 {tf32[0]}, cuDNN TF32 {tf32[1]}): {mean:+.4f} +- {sem:.4f}, "
               f"committed {mean_c:+.3f} +- {sem_c:.3f} at {envs_c} envs: {sigma:.2f} sigma "
               f"(gate {LADDER_SIGMA}); wall {out['wall']:.2f}s, "
               f"{out['wall'] / LADDER_MACRO_FULL * 1e3:.2f} ms/macro{plans}, launches {launches} "
               f"[{smi}]", flush=True)
-        runs[f"flagship_ladder_{tag}"] = launches
-    check(not misses, f"ladder rows beyond {LADDER_SIGMA} sigma of the committed ladder: {misses}")
+        runs[f"{name}_ladder_{tag}"] = launches
+        keep[tag] = out
+    check(not misses, f"{name}: ladder rows beyond {LADDER_SIGMA} sigma of the committed "
+          f"ladder: {misses}")
     return runs
 
 
-def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: str) -> dict:
+def resume_phase3(torch, smi: str, network: Path, export: dict, out_root: Path,
+                  name: str) -> dict:
+    """The trainer's ``--resume`` on a run folder (under ``out_root``) whose
+    checkpoints/ is a copy of ``network``, with the flagship run's
+    config.json flags (``--gen_habit_mix 0.5 --freeze_top``: the phase-3
+    workflow that made the flagship from the distilled agent), one epoch of
+    TRAIN_ROUNDS rounds. Checks the epoch number, fresh Adams, ``top``
+    bit-equal to ``export`` and ``mid`` and ``down`` moved, and the MSEo
+    against the median of the run's last 10 epochs. Returns K1's
+    launches."""
+    from deep_active_inference_mc_torch.apps import train as train_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+
+    cfg_run = json.loads((ROOT / FLAGSHIP.parent / "config.json").read_text())
+    default = dataclasses.asdict(Config())
+    cut = {"rounds": TRAIN_ROUNDS, "sweep_steps": TRAIN_SWEEP_STEPS, "out_root": str(out_root)}
+    argv = []
+    for k, v in cfg_run.items():
+        v = cut.get(k, v)
+        if v == default[k] or v is None or k == "epochs":
+            continue
+        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    cfg = Config.from_args(argv)
+    with open(ROOT / network / "stats.pkl", "rb") as f:
+        history = pickle.load(f)
+    n_done = len(history["F"])
+    shutil.copytree(ROOT / network, cfg.folder_chp)
+    LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_app.main(argv + ["--resume", "--epochs", str(n_done + 1)])
+    launches = dict(LAUNCHES)
+    check(out["start_epoch"] == n_done + 1, f"{name} resume: started at epoch "
+          f"{out['start_epoch']}, want {n_done + 1}")
+    check_stats(torch, f"{name} resume", out["stats"])
+    sd = {k: v.cpu() for k, v in out["state"].agent.state_dict().items()}
+    check(all(torch.equal(sd[k], v) for k, v in export["agent"].items() if k.startswith("top.")),
+          f"{name} resume: top changed under freeze_top")
+    still = [k for k, v in export["agent"].items()
+             if k.startswith(("mid.", "down.")) and torch.equal(sd[k], v)]
+    check(not still, f"{name} resume: mid / down tensors unchanged by the epoch: {still[:5]}")
+    steps = {k: [int(s["step"]) for s in o.state_dict()["state"].values()]
+             for k, o in out["state"].opts.items()}
+    check(steps["top"] == [] and all(set(steps[k]) == {TRAIN_ROUNDS} for k in ("mid", "down")),
+          f"{name} resume: Adam steps {steps}, want fresh Adams at {TRAIN_ROUNDS} (top none)")
+    ref = statistics.median(history["mse_o"][-10:])
+    mse = out["stats"]["mse_o"][-1]
+    check(MSE_BAND[0] * ref <= mse <= MSE_BAND[1] * ref,
+          f"{name} resume: MSEo {mse:.2f} outside {MSE_BAND} x {ref:.2f}")
+    want = 4 * TRAIN_SWEEP_STEPS + 2 * TRAIN_ROUNDS + EVAL_RENDERS
+    check(launches.get("render", 0) == want and out["round_launches"] == [2 * TRAIN_ROUNDS],
+          f"{name} resume: {launches.get('render', 0)} K1 launches, want {want} (2 per round)")
+    sps = out["env_steps_per_s"][0]
+    print(f"[{name}] trainer --resume {' '.join(argv)}: epoch {out['start_epoch']}, "
+          f"{cfg.batch * cfg.repeats / sps * 1e3:.3f} ms/round, MSEo {mse:.3f} (clean "
+          f"{out['stats']['mse_o_clean'][-1]:.3f}) against the run's last 10 epochs' median "
+          f"{ref:.3f}: x{mse / ref:.3f}; top bit-unchanged, mid and down moved, Adam steps "
+          f"{({k: max(v, default=0) for k, v in steps.items()})}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; launches {launches} "
+          f"[{smi}]", flush=True)
+    return launches
+
+
+def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: str,
+                   seen: dict) -> dict:
     """The committed flagship agent through the port's CLIs, with the
     FULL_LADDER rows named in ``ladder`` (comma-separated). Returns K1's
-    launch counts by path."""
+    launch counts by path, and puts in ``seen`` what the distilled phase
+    reads beside its own: the ladder rows' results, the reference-budget
+    plans' statistics and the demo's ``habit`` trace."""
     import numpy as np
 
     from deep_active_inference_mc_torch.apps import demo as demo_app
     from deep_active_inference_mc_torch.apps import distill as distill_app
     from deep_active_inference_mc_torch.apps import sweep as sweep_app
-    from deep_active_inference_mc_torch.apps import train as train_app
     from deep_active_inference_mc_torch.config import Config
     from deep_active_inference_mc_torch.envs import dsprites as env_lib
     from deep_active_inference_mc_torch.envs import raster
@@ -2151,9 +2227,7 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
     from deep_active_inference_mc_torch.utils import convert
 
     t_phase = time.perf_counter()
-    extra = [tag for tag in ladder.split(",") if tag]
-    unknown = sorted(set(extra) - set(FULL_LADDER))
-    check(not unknown, f"--ladder: no such rows {unknown} (rows: {sorted(FULL_LADDER)})")
+    extra = [tag for tag in ladder.split(",") if tag in FULL_LADDER]
     export = convert.load_export(ROOT / FLAGSHIP / EXPORT)
     lut = raster.build_sprite_lut(dev)
     runs = {}
@@ -2181,8 +2255,12 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
           f"{np.round(right.numpy(), 5).tolist()}: the sorting contrast holds (wrong side < "
           f"{EDGE_MAX_WRONG})", flush=True)
 
-    # (c) ladder rows at the committed protocol.
-    runs.update(flagship_ladder_rows(torch, smi, extra))
+    # (c) ladder rows at the committed protocol: LADDER_ROWS, then the
+    # FULL_LADDER rows named in ``ladder``.
+    seen["ladder"] = {}
+    runs.update(ladder_rows(torch, smi, FLAGSHIP,
+                            dict(LADDER_ROWS, **{tag: FULL_LADDER[tag] for tag in extra}),
+                            committed_ladder(), "flagship", seen["ladder"]))
 
     # (d) the trained-prior planner: one plan at the reference budget.
     g = torch.Generator(device=dev).manual_seed(0)
@@ -2213,6 +2291,8 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
               f"{FLAGSHIP_PLAN_ENVS / dt:.2f}; repeats_done mean {reps.mean():.2f} (JAX package "
               f"{JAX_TRAINED_EXPANSIONS}/{REF_BUDGET}, BENCH_r05.json) max {int(reps.max())}, "
               f"depth_capped {int(res.depth_capped.sum())}{trace} [{smi}]", flush=True)
+        seen[f"plan_{tag}"] = (float(reps.mean()), int(res.depth_capped.sum()),
+                               list(bucketed.bucket_trace) if tag == "bucketed" else None)
 
     # (d) the ladder's best configuration on the trained prior, depth cut.
     log = []
@@ -2236,51 +2316,9 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
     runs["flagship_mcts_bucketed_queue"] = launches
 
     # (e) the trainer resumes the flagship run with its config.json flags.
-    cfg_run = json.loads((ROOT / FLAGSHIP.parent / "config.json").read_text())
-    default = dataclasses.asdict(Config())
     # A run folder of its own: phase 4's run has the same signature.
-    cut = {"rounds": TRAIN_ROUNDS, "sweep_steps": TRAIN_SWEEP_STEPS,
-           "out_root": str(Path(out_root) / "flagship")}
-    argv = []
-    for k, v in cfg_run.items():
-        v = cut.get(k, v)
-        if v == default[k] or v is None or k == "epochs":
-            continue
-        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
-    cfg = Config.from_args(argv)
-    with open(ROOT / FLAGSHIP / "stats.pkl", "rb") as f:
-        history = pickle.load(f)
-    n_done = len(history["F"])
-    shutil.copytree(ROOT / FLAGSHIP, cfg.folder_chp)
-    LAUNCHES.clear()
-    torch.cuda.reset_peak_memory_stats()
-    out = train_app.main(argv + ["--resume", "--epochs", str(n_done + 1)])
-    launches = dict(LAUNCHES)
-    check(out["start_epoch"] == n_done + 1, f"flagship resume: started at epoch "
-          f"{out['start_epoch']}, want {n_done + 1}")
-    check_stats(torch, "flagship resume", out["stats"])
-    top = out["state"].agent.top.state_dict()
-    check(all(torch.equal(v.cpu(), export["agent"][f"top.{k}"]) for k, v in top.items()),
-          "flagship resume: top changed under freeze_top")
-    steps = {k: [int(s["step"]) for s in o.state_dict()["state"].values()]
-             for k, o in out["state"].opts.items()}
-    check(steps["top"] == [] and all(set(steps[k]) == {TRAIN_ROUNDS} for k in ("mid", "down")),
-          f"flagship resume: Adam steps {steps}, want fresh Adams at {TRAIN_ROUNDS} (top none)")
-    ref = statistics.median(history["mse_o"][-10:])
-    mse = out["stats"]["mse_o"][-1]
-    check(MSE_BAND[0] * ref <= mse <= MSE_BAND[1] * ref,
-          f"flagship resume: MSEo {mse:.2f} outside {MSE_BAND} x {ref:.2f}")
-    want = 4 * TRAIN_SWEEP_STEPS + 2 * TRAIN_ROUNDS + EVAL_RENDERS
-    check(launches.get("render", 0) == want and out["round_launches"] == [2 * TRAIN_ROUNDS],
-          f"flagship resume: {launches.get('render', 0)} K1 launches, want {want} (2 per round)")
-    sps = out["env_steps_per_s"][0]
-    print(f"[flagship] trainer --resume {' '.join(argv)}: epoch {out['start_epoch']}, "
-          f"{cfg.batch * cfg.repeats / sps * 1e3:.3f} ms/round, MSEo {mse:.3f} (clean "
-          f"{out['stats']['mse_o_clean'][-1]:.3f}) against the run's last 10 epochs' median "
-          f"{ref:.3f}: x{mse / ref:.3f}; top bit-unchanged, Adam steps {({k: max(v, default=0) for k, v in steps.items()})}; "
-          f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; launches {launches} "
-          f"[{smi}]", flush=True)
-    runs["flagship_train_resume"] = launches
+    runs["flagship_train_resume"] = resume_phase3(torch, smi, FLAGSHIP, export,
+                                                  Path(out_root) / "flagship", "flagship")
 
     # (f) one distillation iteration and a demo round per controller.
     log = []
@@ -2317,7 +2355,149 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
               f"{out['wall']:.3f}s, {out['fps']:.2f} frames/s, {out['plans']} plans per round, "
               f"final score {float(trace[-1]):+.3f}; launches {launches} [{smi}]", flush=True)
         runs[f"flagship_demo_{method}"] = launches
+        seen[f"demo_{method}"] = trace
     print(f"[flagship] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return runs
+
+
+# ------------------------------------------------------------ slice 12
+DISTILLED = Path("artifacts") / "run512" / "checkpoints_distilled"  # the JAX CLIs' -n
+LADDER_LOG_R4 = Path("artifacts") / "run512" / "eval_log_round4.txt"  # the distilled agent's
+# The round-4 protocol (docs/STATUS.md, scripts/final_eval.sh's mcts and
+# mcts_bucketed rows): re-plan each macro step at the reference budget,
+# fused, bf16, C = 1. Added by --ladder only (each takes tens of minutes).
+MCTS_R4_FLAGS = ["--method", "mcts", "--mcts_repeats", str(REF_BUDGET), "--mcts_fused", "--bf16"]
+DISTILLED_ROWS = {"habit": ("habit", LADDER_ENVS_FULL, ["--method", "habit"], False)}
+DISTILLED_LADDER = {
+    "distilled_mcts": ("mcts", MCTS_ENVS, MCTS_R4_FLAGS + ["--chunk", "8"], False),
+    "distilled_mcts_bucketed": ("mcts_bucketed", LADDER_ENVS,
+                                MCTS_R4_FLAGS + ["--mcts_bucketed"], False),
+}
+
+
+def phase_distilled(torch, dev, smi: str, out_root: str, ladder: str, flagship: dict) -> dict:
+    """The committed distilled agent (the round-4 agent the flagship was
+    resumed from) through the port's CLIs, beside what phase 13 gave on
+    the flagship (``flagship``: ``phase_flagship``'s ``seen``), with the
+    DISTILLED_LADDER rows named in ``ladder``. Returns K1's launch counts by
+    path."""
+    from deep_active_inference_mc_torch.apps import demo as demo_app
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+    from deep_active_inference_mc_torch.envs import dsprites as env_lib
+    from deep_active_inference_mc_torch.envs import raster
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+    from deep_active_inference_mc_torch.plan import mcts as mcts_lib
+    from deep_active_inference_mc_torch.utils import convert
+
+    t_phase = time.perf_counter()
+    export = convert.load_export(ROOT / DISTILLED / EXPORT)
+    lut = raster.build_sprite_lut(dev)
+    runs = {}
+
+    # (a) the weights on the card are the export's, bit for bit; top and
+    # the precision are the flagship's, mid and down are not.
+    agent = sweep_app.build_agent(Config(), str(ROOT / DISTILLED), dev)
+    theirs = sweep_app.build_agent(Config(), str(ROOT / FLAGSHIP), dev)
+    sd, sd_f = agent.state_dict(), theirs.state_dict()
+    check(sd.keys() == export["agent"].keys(), "distilled: the agent's keys are not the export's")
+    differ = [k for k, v in export["agent"].items() if not torch.equal(sd[k].cpu(), v)]
+    check(not differ, f"distilled: weights differ from the export: {differ[:5]}")
+    shared = sorted({k.split(".")[0] for k in sd if torch.equal(sd[k], sd_f[k])})
+    check(shared == ["top"], f"distilled: parts equal to the flagship's: {shared}, want top")
+    n_params = sum(v.numel() for v in sd.values())
+    print(f"[distilled] {DISTILLED}: {n_params} parameters on the card equal {EXPORT}, bit for "
+          f"bit; parts bit-equal to the flagship's: {shared}; precision "
+          f"{({k: float(v) for k, v in export['precision'].items()})} [{smi}]", flush=True)
+
+    # (b) the habit row at the ladder's protocol, gated against round 4's.
+    keep = {}
+    runs.update(ladder_rows(torch, smi, DISTILLED, DISTILLED_ROWS,
+                            committed_ladder(LADDER_LOG_R4), "distilled", keep))
+    mine, ref = keep["habit"]["scores"], flagship["ladder"]["habit"]["scores"]
+    # The habit controller is Q(pi | encoder mean(o)): the shared top reads
+    # each agent's own encoder. On the same encoder means the two habit
+    # nets agree bit for bit; on frames they do not, so the rows differ.
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        o = env_lib.render(lut, env_lib.reset(g, LADDER_ENVS_FULL, dev))
+        mean = agent.encode(o)[0]
+        q_mine, q_ref = agent.habit(mean)[1], theirs.habit(mean)[1]
+        gap = float((agent.habitual_net(o) - theirs.habitual_net(o)).abs().max())
+    check(torch.equal(q_mine, q_ref), "distilled: the habit net on the same encoder means "
+          "differs from the flagship's (same top, same kernels)")
+    print(f"[distilled] habit row against the flagship's at seed 0 (phase 13): "
+          f"{int((mine == ref).sum())} of {mine.numel()} envs score the same, mean "
+          f"{float(mine.mean()):+.4f} against {float(ref.mean()):+.4f}; the habit net on the "
+          f"distilled encoder's means at the row's first frames ({LADDER_ENVS_FULL}) is "
+          f"bit-equal on both agents, Q(pi | frame) differs by up to {gap:.3e} (the encoders "
+          f"differ) [{smi}]", flush=True)
+
+    # (c) G and the forwards on the distilled weights, card against CPU.
+    phase_card_vs_cpu(torch, dev, str(ROOT / DISTILLED), "distilled card-vs-cpu")
+
+    # (d) one trained-prior plan at the reference budget, through the
+    # planners' graphs, on phase 13's frames.
+    g = torch.Generator(device=dev).manual_seed(0)
+    LAUNCHES.clear()
+    with torch.inference_mode():
+        frames = env_lib.render(lut, env_lib.reset(g, FLAGSHIP_PLAN_ENVS, dev))
+    runs["distilled_plan_frames"] = dict(LAUNCHES)
+    p = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
+                            fused_eval=True)
+    log = []
+    with recorded_plans(torch, log, require_graphs=True) as graph_counts:
+        plain = mcts_lib.make_jit_planner(agent, p)
+        bucketed = mcts_lib.make_bucketed_planner(agent, p)
+        plain(frames, (0,))
+        bucketed(frames, (0,))
+    check(len(log) == 2, f"distilled plan: {len(log)} plans recorded, want 2")
+    for tag, (envs, dt, res, trace) in zip(("plain", "bucketed"), log):
+        reps = res.repeats_done.double()
+        f_reps, f_capped, f_trace = flagship[f"plan_{tag}"]
+        print(f"[distilled] plan at the reference budget ({REF_BUDGET} repeats, fused, float32), "
+              f"{tag}: {envs} envs in {dt:.4f}s, plans/s {envs / dt:.2f}; repeats_done mean "
+              f"{reps.mean():.2f} max {int(reps.max())}, depth_capped "
+              f"{int(res.depth_capped.sum())}"
+              + (f", buckets {trace} at iterations {bucketed.schedule}" if trace else "")
+              + f" (the flagship, phase 13: repeats_done mean {f_reps:.2f}, depth_capped "
+              f"{f_capped}" + (f", buckets {f_trace}" if f_trace else "") + "); planner graphs "
+              f"{dict(graph_counts)} [{smi}]", flush=True)
+
+    # (e) the phase-3 workflow that made the flagship: the trainer resumes
+    # the distilled agent with the flagship run's config.json flags.
+    runs["distilled_train_resume"] = resume_phase3(torch, smi, DISTILLED, export,
+                                                   Path(out_root) / "distilled", "distilled")
+
+    # (f) a demo round per controller, habit and ai, graphed.
+    for method, flags in (("habit", []), ("ai", ["--steps", "7"])):
+        LAUNCHES.clear()
+        with recorded_graphs(torch) as graphs_seen:
+            out = demo_app.main(["-n", str(ROOT / DISTILLED), "--method", method, "--headless",
+                                 str(demo_app.DURATION_OF_ROUND), *flags])
+        launches = dict(LAUNCHES)
+        graphed = check_graphed(f"distilled demo {method}", graphs_seen,
+                                ("_round_tick", "Demo._plan_body"))
+        trace = out["trace"]
+        check(tuple(trace.shape) == (demo_app.DURATION_OF_ROUND,)
+              and bool(torch.isfinite(trace).all()) and out["plans"] >= 1
+              and launches.get("render", 0) == out["plans"],
+              f"distilled demo {method}: {launches.get('render', 0)} K1 launches, "
+              f"{out['plans']} plans, trace {trace}")
+        ref = flagship[f"demo_{method}"]
+        print(f"[distilled] demo {method}: {demo_app.DURATION_OF_ROUND} frames in "
+              f"{out['wall']:.3f}s, {out['fps']:.2f} frames/s, {out['plans']} plans per round, "
+              f"final score {float(trace[-1]):+.3f}; {int((trace == ref).sum())} of "
+              f"{trace.numel()} ticks equal the flagship's trace (phase 13), final "
+              f"{float(ref[-1]):+.3f}; launches {launches}; {graphed} [{smi}]", flush=True)
+        runs[f"distilled_demo_{method}"] = launches
+
+    # --ladder: the round-4 planner rows.
+    rows = {tag: DISTILLED_LADDER[tag] for tag in ladder.split(",") if tag in DISTILLED_LADDER}
+    if rows:
+        runs.update(ladder_rows(torch, smi, DISTILLED, rows, committed_ladder(LADDER_LOG_R4),
+                                "distilled", keep))
+    print(f"[distilled] phase in {time.perf_counter() - t_phase:.1f}s", flush=True)
     return runs
 
 
@@ -3196,16 +3376,23 @@ def main() -> None:
                         "the planner phase.")
     parser.add_argument("--trace-dir", default="",
                         help="With --profile: write the chrome traces here.")
-    parser.add_argument("--ladder", nargs="?", const=",".join(FULL_LADDER), default="",
-                        help="Add the flagship's full ladder rows that take minutes each (all, "
-                        "or a comma-separated subset of " + ", ".join(FULL_LADDER) + "), 200 "
+    parser.add_argument("--ladder", nargs="?", const=",".join([*FULL_LADDER, *DISTILLED_LADDER]),
+                        default="",
+                        help="Add the flagship's full ladder rows and the distilled agent's "
+                        "planner rows, which take minutes each (all, or a comma-separated "
+                        "subset of " + ", ".join([*FULL_LADDER, *DISTILLED_LADDER]) + "), 200 "
                         "macro steps each.")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (ROOT / PACKAGE).is_dir():
         fail(f"{PACKAGE}/ not found beside chip_smoke.py")
-    if not (ROOT / FLAGSHIP / EXPORT).is_file():
-        fail(f"{FLAGSHIP / EXPORT} not found: the flagship phase needs the committed export")
+    for network in (FLAGSHIP, DISTILLED):
+        if not (ROOT / network / EXPORT).is_file():
+            fail(f"{network / EXPORT} not found: phases 13 and 13b need the committed exports")
+    unknown = sorted({tag for tag in args.ladder.split(",") if tag}
+                     - set(FULL_LADDER) - set(DISTILLED_LADDER))
+    if unknown:
+        fail(f"--ladder: no such rows {unknown} (rows: {[*FULL_LADDER, *DISTILLED_LADDER]})")
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -3278,7 +3465,11 @@ def main() -> None:
         runs.update(phase_mesh(torch, dev, smi, sweeps["ai"], work))
 
         # ---- 13. the flagship ------------------------------------------
-        runs.update(phase_flagship(torch, dev, smi, work, figures, args.ladder))
+        flagship = {}
+        runs.update(phase_flagship(torch, dev, smi, work, figures, args.ladder, flagship))
+
+        # ---- 13b. the distilled agent -----------------------------------
+        runs.update(phase_distilled(torch, dev, smi, work, args.ladder, flagship))
 
     # ---- 14. the benchmark harness ---------------------------------------
     runs.update(phase_bench(torch, dev, smi))

@@ -38,8 +38,8 @@ two ``make_jit_planner``s, built once: one that collects the paths (the
 host tick's visit mask, as the JAX ``Demo``'s) and one that does not
 (``run_round``'s); on a card each replays one captured search iteration per
 iteration. The host ``tick`` runs op by op. ``-n`` loads a port checkpoint dir, a JAX
-one that holds ``torch_export.npz`` (``artifacts/run512/checkpoints``) or a
-JAX params ``.npz``; without it the agent is a seeded init. The default
+one that holds ``torch_export.npz`` (``artifacts/run512/checkpoints`` or
+``artifacts/run512/checkpoints_distilled``) or a JAX params ``.npz``; without it the agent is a seeded init. The default
 device is ``cuda``; ``--device cpu`` runs on the CPU. matplotlib (the
 window) and PIL (the recordings) are imported where they are used.
 """

@@ -14,7 +14,7 @@ envs (paired across iterations). The best-scoring ``top`` weights are kept
 and restored before the save, which writes a port checkpoint that the
 trainer (``--resume``), the sweep CLI and the demo (``-n``) load. ``-n``
 takes a port checkpoint dir or a JAX one that holds ``torch_export.npz``
-(``artifacts/run512/checkpoints``).
+(``artifacts/run512/checkpoints`` or ``checkpoints_distilled``).
 
 ``--keep_opt`` keeps the checkpoint's top Adam state; by default it is
 reset, because a long soft-teacher run leaves Adam's second moments large

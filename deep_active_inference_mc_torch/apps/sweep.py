@@ -12,7 +12,8 @@ Scores a controller over thousands of vectorized environments on one card:
 
 ``-n`` takes a port checkpoint dir (the trainer's or ``apps/distill.py``'s),
 a JAX checkpoint dir that holds ``torch_export.npz`` (the committed flagship,
-``artifacts/run512/checkpoints``) or a ``.npz`` of the JAX agent's params
+``artifacts/run512/checkpoints``, or the distilled agent it was resumed from,
+``artifacts/run512/checkpoints_distilled``) or a ``.npz`` of the JAX agent's params
 (README: "Weights"); without it the agent is a seeded He-uniform init. Prints one result row in
 the JAX CLI's format. ``--device cpu`` runs on the CPU; the default
 ``cuda`` raises on a machine without a card.

@@ -15,10 +15,10 @@ run folder (``viz/``). Checkpoints go to
 weight-only archives every ``archive_every``; ``--resume`` continues from the
 newest one, optimizer states and random stream included. A run folder whose
 ``checkpoints/`` is a copy of a JAX checkpoint dir that holds
-``torch_export.npz`` (``artifacts/run512/checkpoints``) resumes from its
-weights, precision and envs at the epoch after its stats, with fresh Adams
-and the seeded random stream, as the JAX trainer resumes its weight-only
-store; a JAX dir without the export raises. SIGINT and SIGTERM write a
+``torch_export.npz`` (``artifacts/run512/checkpoints{,_distilled}``) resumes
+from its weights, precision and envs at the epoch after its stats, with
+fresh Adams and the seeded random stream, as the JAX trainer resumes its
+weight-only store; a JAX dir without the export raises. SIGINT and SIGTERM write a
 resumable checkpoint and exit with code 130.
 
 The default device is ``cuda``, and a machine without a card raises;

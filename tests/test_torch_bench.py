@@ -20,6 +20,7 @@ import importlib.util
 import io
 import json
 import math
+import shutil
 import types
 from pathlib import Path
 
@@ -461,6 +462,8 @@ def test_trained_agent_loads_the_export_or_raises(tmp_path, agents):
     assert bench._try_load_trained_agent(CPU, tmp_path / "absent") is None
     with pytest.raises(FileNotFoundError):
         bench._try_load_trained_agent(CPU, tmp_path)  # present, empty
+    bare = tmp_path / "orbax_only"  # an Orbax store without its export
+    shutil.copytree(ROOT / "artifacts" / "run512" / "checkpoints_distilled", bare,
+                    ignore=shutil.ignore_patterns("torch_export.npz"))
     with pytest.raises(FileNotFoundError, match="torch_export.npz"):
-        bench._try_load_trained_agent(CPU, ROOT / "artifacts" / "run512" /
-                                      "checkpoints_distilled")  # Orbax, no export
+        bench._try_load_trained_agent(CPU, bare)

@@ -2,12 +2,14 @@
 read through its ``torch_export.npz`` by the port's loaders and CLIs.
 
 The JAX package reads the Orbax store (``utils/checkpoint.load_all``) on the
-reference side; the port reads only the export. The export is held equal to
-an in-process re-export of the store, leaf for leaf and bit for bit; the
-port's loaders give exactly ``params_from_jax`` of the JAX params; the habit
-net's edge policy equals the JAX test's ``_edge_policy`` to 1e-5.
+reference side; the port reads only the export. Each committed export (the
+flagship's and the distilled agent's, ``checkpoints_distilled``) is held
+equal to an in-process re-export of its store, leaf for leaf and bit for
+bit; the port's loaders give exactly ``params_from_jax`` of the JAX params;
+the habit net's edge policy equals the JAX test's ``_edge_policy`` to 1e-5.
 """
 
+import functools
 import pickle
 import shutil
 
@@ -34,6 +36,7 @@ from test_torch_models import RUN, few_torch_threads  # noqa: F401 (autouse fixt
 FLAGSHIP = RUN / "checkpoints"
 DISTILLED = RUN / "checkpoints_distilled"
 EXPORT = FLAGSHIP / ckpt.EXPORT_FILE
+RUNS = {"flagship": FLAGSHIP, "distilled": DISTILLED}
 # artifacts/run512/config.json's flags that differ from the defaults
 # (freeze_top included), at a tiny size without figures.
 RUN_FLAGS = ["--crn", "--gen_mean", "--explore_eps", "0.1", "--edge_frac", "0.3",
@@ -44,10 +47,10 @@ TINY = ["--batch", "8", "--rounds", "1", "--test_size", "16", "--sweep_envs", "8
 WRONG_SIDE_MAX = {"flagship": 0.08, "distilled": 0.05}
 
 
-@pytest.fixture(scope="module")
-def store():
-    """The JAX train state of the Orbax store, as the README's recipe reads
-    it (template from shapes alone)."""
+@functools.lru_cache(maxsize=None)
+def jax_store(run_dir):
+    """(JAX train state, stats) of the Orbax store in ``run_dir``, as the
+    README's recipe reads it (template from shapes alone)."""
     from deep_active_inference_mc_tpu.train import loop as jloop
     from deep_active_inference_mc_tpu.utils import checkpoint as jckpt
 
@@ -56,8 +59,13 @@ def store():
     shapes = jax.eval_shape(lambda k: jloop.create_train_state(cfg, agent, k),
                             jax.random.key(0))
     state, stats, _ = jckpt.load_all(
-        FLAGSHIP, jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes))
+        run_dir, jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes))
     return state, stats
+
+
+@pytest.fixture(scope="module")
+def store():
+    return jax_store(FLAGSHIP)
 
 
 def reexport(state) -> dict:
@@ -71,11 +79,12 @@ def reexport(state) -> dict:
     return flat
 
 
-def test_committed_export_equals_the_orbax_store(store):
-    """Drift guard: every leaf of the committed export is the store's, same
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_committed_export_equals_the_orbax_store(run):
+    """Drift guard: every leaf of each committed export is its store's, same
     dtype and shape, bit for bit; nothing else is in the file."""
-    want = reexport(store[0])
-    with np.load(EXPORT) as z:
+    want = reexport(jax_store(RUNS[run])[0])
+    with np.load(RUNS[run] / ckpt.EXPORT_FILE) as z:
         assert sorted(z.files) == sorted(want)
         for k, v in want.items():
             assert z[k].dtype == v.dtype and z[k].shape == v.shape, k
@@ -131,46 +140,52 @@ def test_params_npz_of_the_export_loads_the_same_weights(tmp_path):
 
 
 def test_jax_dir_without_export_raises(tmp_path):
-    """``checkpoints_distilled`` has no export: every loader names the
-    missing file and the recipe instead of falling back to a seeded init."""
+    """A JAX (Orbax) dir without the export (a copy of
+    ``checkpoints_distilled`` without its ``torch_export.npz``): every loader
+    names the missing file and the recipe instead of falling back to a
+    seeded init."""
     match = f"{ckpt.EXPORT_FILE}.*README"
+    bare = tmp_path / "orbax_only"
+    shutil.copytree(DISTILLED, bare, ignore=shutil.ignore_patterns(ckpt.EXPORT_FILE))
     with pytest.raises(FileNotFoundError, match=match):
-        ckpt.load_weights(DISTILLED, ActiveInferenceAgent())
+        ckpt.load_weights(bare, ActiveInferenceAgent())
     with pytest.raises(FileNotFoundError, match=match):
-        ckpt.latest_exists(DISTILLED)
+        ckpt.latest_exists(bare)
     gen = torch.Generator()
     state = train_loop.create_train_state(Config(batch=8), ActiveInferenceAgent(), gen, "cpu")
     with pytest.raises(FileNotFoundError, match=match):
-        ckpt.load_all(DISTILLED, state, gen)
+        ckpt.load_all(bare, state, gen)
     with pytest.raises(FileNotFoundError, match=match):
-        sweep_app.main(["--device", "cpu", "-n", str(DISTILLED), "--method", "habit",
+        sweep_app.main(["--device", "cpu", "-n", str(bare), "--method", "habit",
                         "--envs", "4", "--macro", "1"])
     # The trainer's --resume on such a folder raises too.
     run = Config.from_args(TINY + ["--out_root", str(tmp_path)])
-    shutil.copytree(DISTILLED, run.folder_chp)
+    shutil.copytree(bare, run.folder_chp)
     with pytest.raises(FileNotFoundError, match=match):
         train_app.main(TINY + ["--device", "cpu", "--out_root", str(tmp_path), "--resume",
                                "--epochs", "1300"])
 
 
-@pytest.fixture(scope="module")
-def edge_policies():
+@functools.lru_cache(maxsize=None)
+def edge_policies(run):
     """(port, JAX) habit P(up) at the scoring edge, each (left, right) by
-    class: the port's ``habit_edge_policy`` on the export, the JAX test's
-    ``_edge_policy`` on the Orbax store."""
+    class: the port's ``habit_edge_policy`` on ``run``'s export, the JAX
+    test's ``_edge_policy`` on its Orbax store."""
     from test_trained_artifact import _edge_policy
 
-    agent = ckpt.load_weights(FLAGSHIP, ActiveInferenceAgent())
+    agent = ckpt.load_weights(RUNS[run], ActiveInferenceAgent())
     port = evaluate.habit_edge_policy(agent, raster.build_sprite_lut("cpu"))
-    return tuple(x.numpy() for x in port), _edge_policy(FLAGSHIP)
+    return tuple(x.numpy() for x in port), _edge_policy(RUNS[run])
 
 
 @pytest.mark.parametrize("contract", sorted(WRONG_SIDE_MAX))
-def test_edge_policy_matches_jax_and_meets_the_contracts(edge_policies, contract):
-    """The port's probabilities equal JAX's to 1e-5 and meet each contrast
-    contract of tests/test_trained_artifact.py (the flagship's and the
-    distilled habit's: ``top`` is shared, so both hold on the one export)."""
-    (left, right), (jl, jr) = edge_policies
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_edge_policy_matches_jax_and_meets_the_contracts(run, contract):
+    """On each export the port's probabilities equal JAX's to 1e-5 and meet
+    each contrast contract of tests/test_trained_artifact.py (the
+    flagship's and the distilled habit's: ``top`` is shared, so both hold
+    on both exports)."""
+    (left, right), (jl, jr) = edge_policies(run)
     np.testing.assert_allclose(left, jl, rtol=0, atol=1e-5)
     np.testing.assert_allclose(right, jr, rtol=0, atol=1e-5)
     wrong = WRONG_SIDE_MAX[contract]
