@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from deep_active_inference_mc_torch.utils import profiling
+
 # dSprites latent grid: [color, shape, scale, orientation, posX, posY].
 N_COLOR, N_SHAPE, N_SCALE, N_ORIENT, N_POSX, N_POSY = 1, 3, 6, 40, 32, 32
 N_SPRITES = N_SHAPE * N_SCALE * N_ORIENT
@@ -98,6 +100,7 @@ def _cpu_lut() -> torch.Tensor:
     return lut
 
 
+@profiling.spanned("raster.lut")
 def build_sprite_lut(device: str | torch.device = "cpu") -> torch.Tensor:
     """(720, 96, 96) float32 sprite table on ``device``; row
     ``shape*240 + scale*40 + orient``. Built once per process on the CPU

@@ -18,6 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from deep_active_inference_mc_torch.utils import profiling
+
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR / "_build"
 NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
@@ -70,7 +72,9 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     return report
 
 
+@profiling.spanned("k1.load")
 def load(name: str) -> ctypes.CDLL:
-    """The library of kernel ``name``, built first if needed."""
+    """The library of kernel ``name``, built first if needed (a span:
+    ``k1.load``, K1 being the one kernel)."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))

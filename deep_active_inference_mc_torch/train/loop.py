@@ -50,6 +50,7 @@ from deep_active_inference_mc_torch.infer.precision import OmegaParams, Precisio
 from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.train import losses
 from deep_active_inference_mc_torch.utils import graphs as graphs_lib
+from deep_active_inference_mc_torch.utils import profiling
 
 LAYERS = ("top", "mid", "down")
 METRIC_KEYS = ("F_top", "F_mid", "F_down", "nll_o", "omega", "omega_std", "kl_pi",
@@ -291,6 +292,9 @@ def make_epoch_fn(cfg: Config, lut: torch.Tensor, rounds: int,
     metrics plus the worst-round maxima ``<key>_max`` of ``EPOCH_MAX_KEYS``
     as floats. ``draws`` (one RoundDraws per round) replaces the generator.
     The epoch's one host sync is the transfer of the stacked metrics.
+    Spans (``utils/profiling.py``): the call is ``train.epoch``, each round's
+    draws from ``generator`` ``train.draws`` and the transfer
+    ``train.readback``.
 
     ``graphed`` (default: on a card without a mesh) replays the round as a
     captured CUDA graph; False runs the same body op by op. A graphed epoch
@@ -302,11 +306,14 @@ def make_epoch_fn(cfg: Config, lut: torch.Tensor, rounds: int,
         raise ValueError("a graphed epoch runs on one rank (mesh=None)")
     graphs = graphs_lib.Graphs()
 
+    draw = profiling.spanned("train.draws")(draw_round)
+
+    @profiling.spanned("train.epoch")
     def epoch(state, generator, draws=None):
         agent, opts = state.agent, state.opts
         batch = state.env.batch * (mesh.n_data if mesh else 1)  # the global batch
         xs = iter(draws) if draws is not None else (
-            draw_round(agent, cfg, batch, generator, lut.device) for _ in range(rounds))
+            draw(agent, cfg, batch, generator, lut.device) for _ in range(rounds))
 
         def body(carry, d):
             env, precision = carry
@@ -322,9 +329,10 @@ def make_epoch_fn(cfg: Config, lut: torch.Tensor, rounds: int,
         else:
             carry, table = graphs_lib.eager_scan(body, carry, xs, rounds)
         state.env, state.precision = carry
-        table = table.cpu()
-        out = dict(zip(METRIC_KEYS, table[-1].tolist()))
-        worst = dict(zip(METRIC_KEYS, table.max(dim=0).values.tolist()))
+        with profiling.span("train.readback"):
+            table = table.cpu()
+            out = dict(zip(METRIC_KEYS, table[-1].tolist()))
+            worst = dict(zip(METRIC_KEYS, table.max(dim=0).values.tolist()))
         for k in EPOCH_MAX_KEYS:
             out[k + "_max"] = worst[k]
         return state, out

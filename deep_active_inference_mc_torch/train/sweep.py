@@ -62,6 +62,7 @@ from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 from deep_active_inference_mc_torch.utils import graphs as graphs_lib
+from deep_active_inference_mc_torch.utils import profiling
 from deep_active_inference_mc_torch.utils import random as rnd
 from deep_active_inference_mc_torch.utils.device import seeded_generator
 
@@ -145,11 +146,12 @@ def _mcts_plan(agent, o, planner, seed_path, draws):
 
 def _controller_actions(agent, generator, o, env, method, steps, samples,
                         temperature, planner, calc_mean, crn=False, draws=None,
-                        seed_path=None):
+                        seed_path=None, g_events=None):
     """One decision per env: (B,) actions in agent space (env space for
     the expert). mcts takes the first action of ``planner``'s plan; every
     other controller samples by Gumbel-max, the random baseline over equal
-    logits."""
+    logits. ``g_events``: a pair of timing events recorded around G while
+    a graph captures the step."""
     if method == "mcts":
         return _mcts_plan(agent, o, planner, seed_path, draws)[0][:, 0]
     if method == "random":
@@ -159,21 +161,27 @@ def _controller_actions(agent, generator, o, env, method, steps, samples,
     elif method == "habit":
         logits = torch.log(agent.habitual_net(o) + 1e-20)
     else:
+        timed = g_events is not None and torch.cuda.is_current_stream_capturing()
+        if timed:
+            g_events[0].record()
         score = _efe_score(agent, generator, o, method, steps, samples, calc_mean,
                            crn, None if draws is None else draws.rollout)
+        if timed:
+            g_events[1].record()
         logits = score / temperature
     return rnd.categorical(logits, generator, None if draws is None else draws.gumbel)
 
 
 def _controller_plan(agent, generator, o, env, method, steps, samples, temperature,
-                     planner, calc_mean, crn=False, draws=None, seed_path=None):
+                     planner, calc_mean, crn=False, draws=None, seed_path=None,
+                     g_events=None):
     """One decision per env as a plan: ((B, width) actions, (B,) lengths).
     mcts: ``planner``'s trimmed visit-max path. ai/t1/t12: the sampled
     action ``steps`` wide."""
     if method == "mcts":
         return _mcts_plan(agent, o, planner, seed_path, draws)
     a = _controller_actions(agent, generator, o, env, method, steps, samples,
-                            temperature, planner, calc_mean, crn, draws)
+                            temperature, planner, calc_mean, crn, draws, g_events=g_events)
     return a[:, None].expand(-1, max(steps, 1)), torch.full_like(a, steps)
 
 
@@ -242,7 +250,13 @@ def make_sweep(
     macro steps run op by op and the planner (``make_jit_planner``) replays
     its search iteration as a graph on a card without a mesh, unless
     ``graphed`` is False; ``run.planner`` is that planner (None for the
-    other methods)."""
+    other methods).
+
+    Spans (``utils/profiling.py``): a call of ``run`` is ``sweep.run``, each
+    macro step's draws from the generator ``sweep.draws``, the chunk's host
+    sync ``sweep.readback``. A graphed ``ai``, ``t1`` or ``t12`` sweep times
+    G inside its graph with a pair of CUDA events and, after each chunk
+    with a replay, keeps the last replay's time as ``efe.device``."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     if mcts_params is None:
@@ -261,6 +275,11 @@ def make_sweep(
         q_cap = min(q_cap, queue_cap)
     render_fn = _render_fn(lut, cfg.resolution, cfg.colour_channels)
     graphs = graphs_lib.Graphs()
+    spanned_draw = profiling.spanned("sweep.draws")(draw_macro)
+    g_events = None
+    if graphed and lut.is_cuda and method in ("ai", "t1", "t12"):
+        g_events = (torch.cuda.Event(enable_timing=True, external=True),
+                    torch.cuda.Event(enable_timing=True, external=True))
     planner = None
     if method == "mcts":  # gloo cannot be captured: a mesh's planner runs op by op
         planner = mcts_lib.make_jit_planner(
@@ -276,7 +295,7 @@ def make_sweep(
                     planner, calc_mean, crn, d, seed_path)
         respawns = None if d is None else d.respawns
         if use_queue:
-            new_q, new_len = _controller_plan(*decision)
+            new_q, new_len = _controller_plan(*decision, g_events=g_events)
             queue, qlen, qpos = qstate
             need = qpos >= qlen
             queue = torch.where(need[:, None], new_q[:, :q_cap], queue)
@@ -285,7 +304,7 @@ def make_sweep(
             a = torch.gather(queue, 1, qpos[:, None])[:, 0]
             qpos = qpos + 1
         else:
-            a = _controller_actions(*decision)
+            a = _controller_actions(*decision, g_events=g_events)
         # The expert acts in env space; agent controllers (and the random
         # baseline) act in agent space.
         if method != "expert":
@@ -302,6 +321,7 @@ def make_sweep(
         return z(n_envs, q_cap), z(n_envs), z(n_envs)
 
     @torch.inference_mode()
+    @profiling.spanned("sweep.run")
     def run(generator: Optional[torch.Generator], env: env_lib.EnvState,
             qstate=None, draws: Optional[Sequence[MacroDraws]] = None):
         """``draws`` (one MacroDraws per macro step) replaces the generator.
@@ -312,8 +332,9 @@ def make_sweep(
         if use_queue and qstate is None:
             qstate = init_qstate(env.batch, env.device)
         n_total = env.batch * (mesh.n_data if mesh else 1)
-        draw = lambda: draw_macro(agent, method, n_total, generator, env.device, steps,
-                                  samples, calc_mean, crn, jumps)
+        draw = lambda: spanned_draw(agent, method, n_total, generator, env.device, steps,
+                                    samples, calc_mean, crn, jumps)
+        replays = graphs.replays
         if graphed:
             xs = iter(draws) if draws is not None else (draw() for _ in range(n_macro_steps))
             (env, qstate), tallies = graphs.scan(
@@ -339,18 +360,21 @@ def make_sweep(
             tallies = mesh.sum_data_(tallies)
             tallies[:, 5] /= n_total
             scores = mesh.gather_data(scores)
-        tallies = tallies.cpu()  # the chunk's one host sync
-        ev_all, ev_sq, ev_oth, r_sq, r_oth, score_t = tallies.unbind(1)
-        out = _score_stats(scores)
-        n = n_total
-        out.update({
-            "scoring_events": float(ev_all.sum()),
-            "events_sq": float(ev_sq.sum()),
-            "events_other": float(ev_oth.sum()),
-            "score_sq": float(r_sq.sum()) / n,
-            "score_other": float(r_oth.sum()) / n,
-            "env": env,
-        })
+        with profiling.span("sweep.readback"):
+            tallies = tallies.cpu()  # the chunk's one host sync
+            ev_all, ev_sq, ev_oth, r_sq, r_oth, score_t = tallies.unbind(1)
+            out = _score_stats(scores)
+            n = n_total
+            out.update({
+                "scoring_events": float(ev_all.sum()),
+                "events_sq": float(ev_sq.sum()),
+                "events_other": float(ev_oth.sum()),
+                "score_sq": float(r_sq.sum()) / n,
+                "score_other": float(r_oth.sum()) / n,
+                "env": env,
+            })
+        if g_events is not None and graphs.replays > replays:  # the device is idle here
+            profiling.record_device("efe.device", g_events[0].elapsed_time(g_events[1]) / 1e3)
         if record_traj:
             out["score_traj"] = score_t
         if use_queue:

@@ -45,7 +45,7 @@ from deep_active_inference_mc_torch.envs import dsprites as env_lib
 from deep_active_inference_mc_torch.infer.precision import PrecisionState
 from deep_active_inference_mc_torch.parallel import mesh as mesh_lib
 from deep_active_inference_mc_torch.train.loop import TrainState, load_optimizer_state
-from deep_active_inference_mc_torch.utils import convert
+from deep_active_inference_mc_torch.utils import convert, profiling
 
 _SNAPSHOT_SOURCES = ["models/networks.py", "train/losses.py", "train/loop.py"]
 _STATE_FILE = "state.pt"
@@ -211,6 +211,7 @@ def _read(folder_chp: Path) -> Tuple[Path, Dict[str, Any]]:
     return src, torch.load(src, map_location="cpu", weights_only=True)
 
 
+@profiling.spanned("checkpoint.load")
 def load_all(folder_chp: Path, state: TrainState, generator: torch.Generator
              ) -> Tuple[TrainState, Dict]:
     """Restore a checkpoint into ``state`` (a freshly created TrainState:
@@ -255,6 +256,7 @@ def load_all(folder_chp: Path, state: TrainState, generator: torch.Generator
     return state, stats
 
 
+@profiling.spanned("checkpoint.load")
 def load_weights(folder_chp: Path, module: torch.nn.Module) -> torch.nn.Module:
     """Load only the model weights of a checkpoint (full, archive or a JAX
     dir's export) into ``module``: what a sweep or the demo needs, on any

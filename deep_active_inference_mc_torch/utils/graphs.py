@@ -26,7 +26,10 @@ body is captured once as a CUDA graph and replayed once per step:
 
 Kernel launch counts (``ops.cuda.LAUNCHES``) stay what the eager loop
 counts: a wrapper counts once while its launch is captured, and the count
-is taken back and added on every replay instead.
+is taken back and added on every replay instead. Each method's call is a
+span (``utils/profiling.py``: ``graphs.scan``, ``graphs.while_loop``,
+``graphs.call``), and inside it each warm-up step, capture and replay
+(``graphs.warm_up``, ``graphs.capture``, ``graphs.feed``).
 
 ``Graphs.while_loop(body, carry, xs, n, stop)`` is the counterpart of a
 ``lax.while_loop`` whose condition reads the device (the planner's search,
@@ -69,6 +72,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import torch
 
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+from deep_active_inference_mc_torch.utils import profiling
 
 Body = Callable[[Any, Any], Tuple[Any, Optional[torch.Tensor]]]
 LoopBody = Callable[[Any, Any], Any]  # (carry, x) -> carry
@@ -262,6 +266,7 @@ class Graphs:
         """Graphs held."""
         return len(self._graphs)
 
+    @profiling.spanned("graphs.scan")
     def scan(self, body: Body, carry, xs: Iterable, n: int,
              deps: Callable[[], Sequence[torch.Tensor]] = tuple):
         """``eager_scan(body, carry, xs, n)`` as graph replays. ``deps()``:
@@ -317,6 +322,7 @@ class Graphs:
         t.fill_(1)
         return _Graph(graph, _addresses(deps), static, x_spec, static_x, ys, t, launches)
 
+    @profiling.spanned("graphs.while_loop")
     def while_loop(self, body: LoopBody, carry, xs: Iterable, n: int, stop: Stop,
                    deps: Callable[[], Sequence[torch.Tensor]] = tuple, key: Any = ()):
         """``eager_while_loop(body, carry, xs, n, stop)`` as graph replays
@@ -369,6 +375,7 @@ class Graphs:
         return _Graph(graph, _addresses(deps), static, x_spec, static_x, None, None, launches,
                       flag, flags)
 
+    @profiling.spanned("graphs.call")
     def call(self, fn: Callable[..., Any], inputs: Sequence[Any],
              deps: Callable[[], Sequence[torch.Tensor]] = tuple, key: Any = ()):
         """``fn(*inputs)`` as a graph replay (the module's docstring).
@@ -395,6 +402,7 @@ class Graphs:
                                    launches, out=box[0])
         return out
 
+    @profiling.spanned("graphs.capture")
     def _capture_step(self, step: Callable[[Any], Any], x, pool=None):
         """Capture ``step`` fed static copies of ``x``'s tensors: (graph,
         ``x``'s spec, the static inputs, kernel launches per replay)."""
@@ -411,6 +419,7 @@ class Graphs:
         self.captures += 1
         return graph, x_spec, static_x, launches
 
+    @profiling.spanned("graphs.feed")
     def _feed(self, g: _Graph, x) -> None:
         """Copy one step's input ``x`` into ``g``'s static buffers and replay."""
         x_leaves: List[torch.Tensor] = []
@@ -423,6 +432,7 @@ class Graphs:
         self.replays += 1
 
 
+@profiling.spanned("graphs.warm_up")
 def _warm_up(run: Callable[[], Any]):
     """``run()`` on a side stream that waits for the current one, which
     then waits for it: a step run eagerly before its capture, which settles

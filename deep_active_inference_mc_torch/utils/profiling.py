@@ -1,18 +1,156 @@
-"""Tracing: a ``torch.profiler`` context for a block of work.
+"""Tracing: the port's spans, and a ``torch.profiler`` context for a block
+of work.
 
-Counterpart of ``deep_active_inference_mc_tpu/utils/profiling.py``: the
-trainer's ``--profile_dir`` wraps its first epoch in ``trace``, which writes
-a chrome trace (``epoch_trace.json``) of the host and, on a card, of the
-device. Throughput counters live in the epoch line.
+Counterpart of ``deep_active_inference_mc_tpu/utils/profiling.py``, whose
+``trace`` this module keeps: the trainer's ``--profile_dir`` wraps its
+first epoch in ``trace``, which writes a chrome trace
+(``epoch_trace.json``) of the host and, on a card, of the device.
+
+``span(name)`` marks one host interval at a layer boundary of the port (an
+epoch, a sweep chunk, a graph's capture or replay, a load). It is always
+on and costs two clock reads and a few appends: each span is kept with its
+name, the innermost open span of its thread as its parent, and its start
+and end stamps on ``time.time_ns()``, the clock on which the torch
+profiler stamps its events, so a span lines up with a device trace's
+kernels. The last ``RING`` spans are kept in order (``spans()``), and per
+name the count, total and self time (the duration less the part covered
+by the span's children) of every span since the start or the last
+``reset()`` (``totals()``). While a torch profiler runs, a span also
+enters ``record_function(name)``, so it shows by name in the profiler's
+trace. ``record_device(name, seconds)`` keeps a duration measured on the
+device (CUDA events) as a span of no thread. The span counts are the
+port's counters; besides them ``ops.cuda.LAUNCHES`` counts K1's launches
+and ``Graphs.captures`` / ``replays`` a graph cache's work. The epoch line
+reports throughput.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import threading
+import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+RING = 65536  # the spans kept in order; the totals count every span
+
+
+class Span(NamedTuple):
+    name: str
+    parent: Optional[str]  # the innermost open span of the thread when it began
+    start_ns: int  # time.time_ns()
+    end_ns: int
+    self_ns: int  # the duration less the children's
+    thread: Optional[int]  # threading.get_ident(); None for a device span
+
+
+class Totals(NamedTuple):
+    count: int
+    total_ns: int
+    self_ns: int
+
+
+_lock = threading.Lock()
+_ring: collections.deque = collections.deque(maxlen=RING)
+_totals: Dict[str, List[int]] = {}
+_local = threading.local()
+
+
+def _profiler_running() -> bool:
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _keep(s: Span) -> None:
+    with _lock:
+        _ring.append(s)
+        t = _totals.get(s.name)
+        if t is None:
+            _totals[s.name] = [1, s.end_ns - s.start_ns, s.self_ns]
+        else:
+            t[0] += 1
+            t[1] += s.end_ns - s.start_ns
+            t[2] += s.self_ns
+
+
+class span:
+    """``with span(name):`` keeps the enclosed block as a span (the
+    module's docstring)."""
+
+    __slots__ = ("name", "_parent", "_child_ns", "_annotation", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self._parent = stack[-1] if stack else None
+        self._child_ns = 0
+        stack.append(self)
+        # The stamps enclose the annotation (entered after the start,
+        # left before the end), so its cost lies inside the span.
+        self._t0 = time.time_ns()
+        self._annotation = None
+        if _profiler_running():
+            self._annotation = _autograd_profiler.record_function(self.name)
+            self._annotation.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        t1 = time.time_ns()
+        _local.stack.pop()
+        dur = t1 - self._t0
+        parent = self._parent
+        if parent is not None:
+            parent._child_ns += dur
+        _keep(Span(self.name, parent and parent.name, self._t0, t1, dur - self._child_ns,
+                   threading.get_ident()))
+
+
+def spanned(name: str):
+    """A decorator: each call of the function is a span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def record_device(name: str, seconds: float) -> None:
+    """Keep a duration measured on the device as a span of no thread and no
+    parent, ending now."""
+    end = time.time_ns()
+    ns = int(round(seconds * 1e9))
+    _keep(Span(name, None, end - ns, end, ns, None))
+
+
+def spans() -> List[Span]:
+    """The last ``RING`` spans, in the order they ended."""
+    with _lock:
+        return list(_ring)
+
+
+def totals() -> Dict[str, Totals]:
+    """Per name: every span's count, total and self time since ``reset()``."""
+    with _lock:
+        return {k: Totals(*v) for k, v in _totals.items()}
+
+
+def reset() -> None:
+    """Forget every span kept so far (spans open now are kept at their end)."""
+    with _lock:
+        _ring.clear()
+        _totals.clear()
 
 
 @contextlib.contextmanager
