@@ -33,7 +33,26 @@ Phases (any failure exits non-zero and prints no result):
      two), beside K1's time between its own events per call (the method of
      earlier runs) and back to back with a warm L2, and
      K1's bound from the bytes this data needs.
-  3. the serving path at full width: the sweep CLI's ``main`` with the
+  2b. the decoder's transposed-conv kernel (``ops/cuda/deconv.cu``) on the
+     flagship's layer shapes with seeded weights and nonzero biases, at 1,
+     33, 512 and 4096 rows: each layer's launch on its own input (the
+     launch before's output) against ``deconv.layer_tf32``, that layer in
+     float64 with the kernel's TF32 operands: beyond the half TF32 unit of
+     the kernel's own rounding of its output, within FP32 summation's
+     bound (2^-15 of sum |x| |w| + |bias|); the frame within
+     ``deconv.FRAME_ATOL`` (2^-11) of ``decode_frames_tf32``, the whole
+     stack so modelled, TF32 roundings between layers included; each beside
+     its max |err| against the plain version in float64. Rows decoded alone
+     bit-equal to the same rows of the 4096 batch. torch.profiler shows one
+     decode as its 4 launches and a no-grad ``Decoder`` forward without
+     cuDNN's dgrad or layout kernels (this check runs before phase 2, after
+     which the profiler lists no device kernel in this process, with or
+     without this kernel). At 512 and 4096: the decode's and each layer's
+     device time with a clean L2 and no events around any call, in turns
+     with the plain version (on a card, cuDNN's chain: the decoder before
+     the kernel), beside the FLOP bound (495 TFLOP/s TF32) and the byte
+     bound with and without the third layer's output in device memory.
+ 3. the serving path at full width: the sweep CLI's ``main`` with the
      ``ai`` controller (mean G, 1 step, 1 sample, 5 jumps) at 1024 envs for
      20 macro steps, then ``habit``, on the seeded flagship-width agent.
      Launch counts are zeroed just before each run and read just after.
@@ -197,7 +216,11 @@ Phases (any failure exits non-zero and prints no result):
      phase's replay at the CLI's defaults (20 steps of 2048 rows), ms per
      step; (j) one demo round per controller (``habit``, ``ai``, ``t1``,
      ``t12``; ``mcts`` is (f)'s) on the flagship, frames/s.
- 16. one JSON line describing every hand-written kernel, the card's
+ 16. one JSON line describing every hand-written kernel (K1's row at the
+     training batch, the decoder kernel's at 512 and 4096, each with its
+     launches by path and its registers, shared memory and local memory
+     as ``cuobjdump --dump-resource-usage`` reads them from the built
+     library), the card's
      ``nvidia-smi`` name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 
@@ -267,6 +290,10 @@ RENDER_CHECK_B = sorted({1, 33, MCTS_ENVS, TRAIN_BATCH, TRAIN_SWEEP_ENVS, LADDER
                          TRAIN_TEST_SIZE, SWEEP_ENVS, DISTILL_BATCH, 4096})
 # B=1: the timing method's floor and the demo's batch.
 RENDER_TIME_B = (1, MCTS_ENVS, TRAIN_BATCH, SWEEP_ENVS, DISTILL_BATCH, 4096)
+DECONV_CHECK_B = (1, 33, TRAIN_BATCH, 4096)  # the demo, an odd size, a round's, the G sweep's rows
+DECONV_TIME_B = (TRAIN_BATCH, 4096)
+DECONV_LAUNCHES = 4  # per decode: one per layer
+TF32_FLOPS = 495e12  # an H100 SXM's dense TF32 tensor-core peak (NVIDIA's data sheet)
 TRAIN_FLAGS = ["--crn", "--gen_mean", "--explore_eps", "0.1", "--edge_frac", "0.3",
                "--gen_habit_mix", "0.5"]
 EVAL_RENDERS = 5  # K1 launches of one eval pass: 4 at test_size, the edge probe's 96
@@ -444,7 +471,8 @@ def first_design(torch, lut, latents, last_r):
 
 def device_kernels(torch, fn) -> list:
     """(name, count) of every device kernel that one call of ``fn`` ran,
-    from torch.profiler (after a warm-up call)."""
+    from the profiler's raw events (after a warm-up call), as the
+    benchmark's tracer reads them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -453,8 +481,10 @@ def device_kernels(torch, fn) -> list:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    names = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                                if e.device_type() == DeviceType.CUDA
+                                and not e.is_user_annotation())
+    return sorted(names.items())
 
 
 def phase_render(torch, dev, bw: float, smi: str) -> tuple:
@@ -549,10 +579,175 @@ def phase_render(torch, dev, bw: float, smi: str) -> tuple:
     return k1, n_route
 
 
+def deconv_work(layers, B) -> list:
+    """Per layer, (FLOPs, bytes) of a decode of B rows: 2 x 9 x Cin x Cout
+    per input pixel (a stride-2 phase sums only its own taps), each input
+    byte read once and each output byte written once (the weights, at most
+    147 KB a layer, left out)."""
+    work, width = [], 16
+    for layer in layers:
+        cin, cout = layer.weight.shape[:2]
+        s = layer.stride[0]
+        work.append((2 * 9 * cin * cout * B * width * width,
+                     4 * B * width * width * cin + 4 * B * (s * width) ** 2 * cout))
+        width *= s
+    return work
+
+
+def seeded_decoder(torch, dev):
+    """The flagship's decoder widths, seeded weights, nonzero biases."""
+    from deep_active_inference_mc_torch.models import networks
+
+    g = torch.Generator().manual_seed(0)
+    dec = networks.Decoder()
+    networks.he_uniform_init_(dec, g)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.dim() == 1:
+                p.uniform_(-0.1, 0.1, generator=g)
+    return dec.to(dev)
+
+
+def deconv_route(torch, dev) -> None:
+    """One decode is the kernel's 4 launches, and a no-grad ``Decoder``
+    forward runs none of cuDNN's dgrad or layout kernels (torch.profiler).
+    It runs before phase 2: phase 2 leaves later profiler sessions of the
+    process without device kernels (K1's phase did so before this kernel
+    existed), and a profiler entered inside inference mode listed none
+    either."""
+    from deep_active_inference_mc_torch.ops.cuda import deconv as k_deconv
+
+    dec = seeded_decoder(torch, dev)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((TRAIN_BATCH, *k_deconv.DENSE_SHAPE), generator=g).to(dev)
+    s = torch.randn((TRAIN_BATCH, 10), generator=g).to(dev)
+    route = device_kernels(torch, torch.no_grad()(lambda: k_deconv.decode_frames(x, dec.deconv)))
+    check(sum(c for _, c in route) == DECONV_LAUNCHES and all("deconv_" in k for k, _ in route),
+          f"one decode ran {route} on the device, want {DECONV_LAUNCHES} deconv launches")
+    forward = device_kernels(torch, torch.no_grad()(lambda: dec(s)))
+    stray = [k for k, _ in forward if "dgrad" in k or "nhwcToNchw" in k or "nchwToNhwc" in k]
+    check(not stray, f"a no-grad Decoder forward still ran {stray}")
+    print(f"[deconv] one decode at B={TRAIN_BATCH}: {route}; a no-grad Decoder forward: "
+          f"{forward} (torch.profiler)", flush=True)
+
+
+def deconv_accuracy(torch, x, layers, launch) -> dict:
+    """The decoder kernel's accuracy on NHWC ``x`` (the dense output before
+    its ReLU): each layer's ``launch(h, layer, first, last)`` on its own
+    input, the output of the launch before, against ``deconv.layer_tf32``
+    (``layer_tf32_share``'s largest share of FP32 summation's bound) and
+    against the plain version in float64 (max |err|); the frame of those
+    launches against ``decode_frames_tf32`` (the share of ``FRAME_ATOL``
+    used) and the plain version, beside the TF32 model's own distance from
+    the plain version."""
+    import copy
+
+    from deep_active_inference_mc_torch.ops.cuda import deconv as k_deconv
+
+    layers64 = [copy.deepcopy(layer).double() for layer in layers]
+    h, per_layer = x, []
+    for i, layer in enumerate(layers):
+        first, last = i == 0, i == len(layers) - 1
+        out = launch(h, layer, first, last)
+        share = k_deconv.layer_tf32_share(out, h, layer, first, last)
+        exact = k_deconv.layer_plain(h.double(), layers64[i], first, last)
+        per_layer.append(dict(used=float(share.max()),
+                              max_abs_err=float((out.double() - exact).abs().max())))
+        del share, exact
+        h = out
+    exact = k_deconv.decode_frames_plain(x.double(), layers64)
+    tf32 = k_deconv.decode_frames_tf32(x, layers)
+    return dict(layers=per_layer,
+                used=float((h.double() - tf32).abs().max()) / k_deconv.FRAME_ATOL,
+                max_abs_err=float((h.double() - exact).abs().max()),
+                tf32_abs_err=float((tf32 - exact).abs().max()))
+
+
+def phase_deconv(torch, dev, bw: float, smi: str) -> dict:
+    """The decoder's kernel against its precision's float64 model and its
+    plain version; times and bounds at the timed sizes. Returns {B: its
+    numbers}."""
+    from deep_active_inference_mc_torch.ops.cuda import deconv as k_deconv
+
+    g = torch.Generator().manual_seed(2)
+    layers = list(seeded_decoder(torch, dev).deconv)
+    l2 = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    flush = l2.sum
+    numbers = {}
+    with torch.inference_mode():
+        for B in DECONV_CHECK_B:
+            x = torch.randn((B, *k_deconv.DENSE_SHAPE), generator=g).to(dev)
+            acc = deconv_accuracy(torch, x, layers, k_deconv.layer_cuda)
+            for i, a in enumerate(acc["layers"]):
+                check(a["used"] <= 1.0, f"the deconv kernel at B={B}: layer {i + 1} lies "
+                      f"{a['used']:.3f} x FP32 summation's bound from layer_tf32")
+            check(acc["used"] <= 1.0, f"the deconv kernel at B={B}: the frame lies "
+                  f"{acc['used'] * k_deconv.FRAME_ATOL:.3e} from decode_frames_tf32's, over "
+                  f"FRAME_ATOL {k_deconv.FRAME_ATOL:.3e}")
+            line = (f"[deconv] B={B}: each layer on its own input against layer_tf32, share of "
+                    f"FP32 summation's bound used " + ", ".join(f"{a['used']:.4f}" for a in acc["layers"])
+                    + "; against the plain version in float64, max |err| "
+                    + ", ".join(f"{a['max_abs_err']:.3e}" for a in acc["layers"])
+                    + f"; the frame against decode_frames_tf32 {acc['used']:.4f} of FRAME_ATOL "
+                    f"{k_deconv.FRAME_ATOL:.3e}, against the plain version {acc['max_abs_err']:.3e}"
+                    f" (the TF32 model's own {acc['tf32_abs_err']:.3e})")
+            got = k_deconv.decode_frames(x, layers)
+            if B == 4096:
+                for i in (0, 1, 2047, 4095):
+                    alone = k_deconv.decode_frames(x[i:i + 1].contiguous(), layers)
+                    check(torch.equal(alone[0], got[i]), f"deconv: row {i} alone differs")
+                line += "; rows 0, 1, 2047, 4095 alone bit-equal to the batch's"
+            print(line, flush=True)
+            if B not in DECONV_TIME_B:
+                continue
+            h = [x]
+            for i, layer in enumerate(layers):
+                h.append(k_deconv.layer_cuda(h[-1], layer, i == 0, i == len(layers) - 1))
+            fns = {"kernel": lambda: k_deconv.decode_frames_cuda(x, layers)}
+            for i, layer in enumerate(layers):
+                fns[f"layer {i + 1}"] = (lambda i=i, layer=layer: k_deconv.layer_cuda(
+                    h[i], layer, i == 0, i == len(layers) - 1))
+            # The plain version on a card is cuDNN's chain, the decoder before the kernel.
+            fns["plain (cuDNN)"] = lambda: k_deconv.decode_frames_plain(x, layers)
+            warm_up_clocks(torch, dev)
+            t = time_clean_l2_ms(torch, fns, flush)
+            work = deconv_work(layers, B)
+            flops = sum(f for f, _ in work)
+            nbytes = sum(b for _, b in work)
+            fused_bytes = nbytes - 2 * 4 * B * 64 * 64 * layers[2].weight.shape[1]
+            ms, library_ms = t["kernel"][1], t["plain (cuDNN)"][1]
+            bounds = dict(flops_ms=flops / TF32_FLOPS * 1e3, bytes_ms=nbytes / bw * 1e3,
+                          bytes_fused_ms=fused_bytes / bw * 1e3)
+            per_layer = [dict(ms=t[f"layer {i + 1}"][1], flops=f, bytes=b,
+                              flops_ms=f / TF32_FLOPS * 1e3, bytes_ms=b / bw * 1e3,
+                              bound_used=acc["layers"][i]["used"],
+                              max_abs_err=acc["layers"][i]["max_abs_err"])
+                         for i, (f, b) in enumerate(work)]
+            numbers[B] = dict(max_abs_err=acc["max_abs_err"], bound_used=acc["used"], ms=ms,
+                              plain_ms=library_ms, library_ms=library_ms,
+                              flops=flops, bytes=nbytes, bytes_fused=fused_bytes,
+                              bound_ms=max(bounds["flops_ms"], bounds["bytes_ms"]),
+                              **bounds, layers=per_layer)
+            spread = ", ".join(f"{k} {q[1]:.5f} ({q[0]:.5f}-{q[2]:.5f})" for k, q in t.items())
+            layer_text = "; ".join(
+                f"layer {i + 1} {p['ms']:.5f} ms, {p['flops'] / p['ms'] / 1e9:.1f} TFLOP/s "
+                f"({p['flops_ms'] / p['ms']:.1%} of TF32), {p['bytes'] / p['ms'] / 1e9:.3f} TB/s "
+                f"({p['bytes_ms'] / p['ms']:.1%} of HBM)" for i, p in enumerate(per_layer))
+            print(f"[deconv] B={B}: clean L2, no events, ms per call median (min-max of "
+                  f"{2 * CLEAN_L2_ROUNDS} runs of {TIMING_REPS}): {spread}; {layer_text}; "
+                  f"decode {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB ({fused_bytes / 1e6:.1f}"
+                  f" MB without layer 3's output in HBM): FLOP bound {bounds['flops_ms']:.5f} ms "
+                  f"({bounds['flops_ms'] / ms:.1%}), byte bound {bounds['bytes_ms']:.5f} ms "
+                  f"({bounds['bytes_ms'] / ms:.1%}), fused {bounds['bytes_fused_ms']:.5f} ms "
+                  f"({bounds['bytes_fused_ms'] / ms:.1%}); {library_ms / ms:.2f} x "
+                  f"faster than cuDNN's chain [{smi}]", flush=True)
+    return numbers
+
+
 def phase_sweep(torch, smi: str, args) -> dict:
     """The main path through the sweep CLI, with launch counts."""
     from deep_active_inference_mc_torch.apps import sweep as sweep_app
-    from deep_active_inference_mc_torch.ops.cuda import KERNELS, LAUNCHES
+    from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
 
     base = ["--envs", str(SWEEP_ENVS), "--jumps", str(JUMPS), "--steps", "1",
             "--samples", "1", "--seed", "0"]
@@ -565,10 +760,12 @@ def phase_sweep(torch, smi: str, args) -> dict:
         scores = out["scores"]
         check(bool(torch.isfinite(scores).all()), f"{method}: non-finite scores")
         check(tuple(scores.shape) == (SWEEP_ENVS,), f"{method}: scores {tuple(scores.shape)}")
-        for name in KERNELS:
-            check(launches.get(name, 0) >= 1, f"{method}: kernel {name} never launched")
         check(launches.get("render", 0) == SWEEP_MACRO,
               f"{method}: {launches.get('render', 0)} render launches, want {SWEEP_MACRO}")
+        decodes = 3 * SWEEP_MACRO if method == "ai" else 0  # the habit never decodes
+        check(launches.get("deconv", 0) == DECONV_LAUNCHES * decodes,
+              f"{method}: {launches.get('deconv', 0)} deconv launches, want "
+              f"{DECONV_LAUNCHES * decodes}")
         env_steps = SWEEP_ENVS * SWEEP_MACRO * JUMPS / out["wall"]
         g_rows = SWEEP_ENVS * 4 * SWEEP_MACRO / out["wall"] if method == "ai" else 0.0
         runs[method] = dict(launches=launches, scores=scores.cpu(),
@@ -3368,6 +3565,71 @@ def phase_graphs(torch, dev, smi: str, args, phase3: dict) -> dict:
     return runs
 
 
+def resource_usage(build, name: str) -> list:
+    """Per entry point of kernel ``name``'s built library, its registers,
+    shared, local (spill) and stack memory, as ``cuobjdump
+    --dump-resource-usage`` reads them."""
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-resource-usage", str(build.library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    rows, entry = [], ""
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            entry = line[len("Function "):].rstrip(":")
+        elif line.startswith("REG:"):
+            rows.append(f"{entry}: {' '.join(line.split())}")
+    return rows
+
+
+def kernel_rows(build, k1: dict, per_render: int, dc: dict, runs: dict) -> list:
+    """The kernels line: K1's row (its numbers at the training batch, the
+    system's main path) and the decoder kernel's (at 512 and 4096), each
+    with its launches by path and its resource usage."""
+    main_B = TRAIN_BATCH
+    return [{
+        "name": "render",
+        "route": "cuda",
+        "source": f"{PACKAGE}/ops/cuda/render.cu",
+        "replaces": "deep_active_inference_mc_tpu/ops/pallas/render.py:50",
+        "launches": runs["train"].get("render", 0),
+        "max_abs_err": k1[main_B]["max_abs_err"],
+        "ms": k1[main_B]["ms"],
+        "plain_ms": k1[main_B]["plain_ms"],
+        "bound_ms": k1[main_B]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "first_design_ms": k1[main_B]["first_design_ms"],
+        "first_design_route_ms": k1[main_B]["first_design_route_ms"],
+        "copy_ms": k1[main_B]["copy_ms"],
+        "per_call_events_ms": k1[main_B]["per_call_events_ms"],
+        "launches_per_render": per_render,
+        "batch": main_B,
+        "launches_by_path": {path: launches.get("render", 0)
+                             for path, launches in runs.items()},
+        "by_batch": {str(B): v for B, v in k1.items()},
+        "resource_usage": resource_usage(build, "render"),
+    }, {
+        "name": "deconv",
+        "route": "cuda",
+        "source": f"{PACKAGE}/ops/cuda/deconv.cu",
+        "replaces": "none: the JAX package leaves the decoder's ConvTranspose to XLA",
+        "launches": runs["train"].get("deconv", 0),
+        "max_abs_err": dc[main_B]["max_abs_err"],
+        "ms": dc[main_B]["ms"],
+        "plain_ms": dc[main_B]["plain_ms"],
+        "bound_ms": dc[main_B]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": dc[main_B]["library_ms"],
+        "launches_per_decode": DECONV_LAUNCHES,
+        "batch": main_B,
+        "launches_by_path": {path: launches.get("deconv", 0)
+                             for path, launches in runs.items()},
+        "by_batch": {str(B): v for B, v in dc.items()},
+        "resource_usage": resource_usage(build, "deconv"),
+    }]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
@@ -3417,9 +3679,12 @@ def main() -> None:
     for name, r in report.items():
         print(f"[build] {name}: {r['seconds']:.2f}s\n{r['log'].strip()}")
     bw = hbm_bytes_per_s(kind)
-
     # ---- 2. K1 against its plain version ---------------------------------
+    deconv_route(torch, dev)  # 2b's profiler check, before phase 2 (see there)
     k1, per_render = phase_render(torch, dev, bw, smi)
+
+    # ---- 2b. the decoder's kernel against its plain version ---------------
+    dc = phase_deconv(torch, dev, bw, smi)
     LAUNCHES.clear()  # the comparison launches above do not count
 
     figures = {}
@@ -3478,34 +3743,14 @@ def main() -> None:
     runs.update(phase_graphs(torch, dev, smi, args, sweeps))
 
     # ---- 16. result lines ------------------------------------------------
-    # K1's row: the launches of the training run (this system's main path)
-    # and the times at its batch; the other paths and sizes beside them.
+    # Every path renders through K1; the decoder's kernel runs where a path
+    # decodes without autograd in float32 with TF32 allowed.
     for path, launches in runs.items():
-        for name in KERNELS:
-            check(launches.get(name, 0) >= 1, f"{path}: kernel {name} never launched")
-    main_B = TRAIN_BATCH
-    kernels = [{
-        "name": "render",
-        "route": "cuda",
-        "source": f"{PACKAGE}/ops/cuda/render.cu",
-        "replaces": "deep_active_inference_mc_tpu/ops/pallas/render.py:50",
-        "launches": runs["train"].get("render", 0),
-        "max_abs_err": k1[main_B]["max_abs_err"],
-        "ms": k1[main_B]["ms"],
-        "plain_ms": k1[main_B]["plain_ms"],
-        "bound_ms": k1[main_B]["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "first_design_ms": k1[main_B]["first_design_ms"],
-        "first_design_route_ms": k1[main_B]["first_design_route_ms"],
-        "copy_ms": k1[main_B]["copy_ms"],
-        "per_call_events_ms": k1[main_B]["per_call_events_ms"],
-        "launches_per_render": per_render,
-        "batch": main_B,
-        "launches_by_path": {path: launches.get("render", 0)
-                             for path, launches in runs.items()},
-        "by_batch": {str(B): v for B, v in k1.items()},
-    }]
+        check(launches.get("render", 0) >= 1, f"{path}: kernel render never launched")
+    for path in ("sweep_ai", "train"):
+        check(runs[path].get("deconv", 0) >= DECONV_LAUNCHES,
+              f"{path}: kernel deconv never launched")
+    kernels = kernel_rows(build, k1, per_render, dc, runs)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")
     print(json.dumps({"kernels": kernels}))

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deep_active_inference_mc_torch.ops.cuda import deconv
 from deep_active_inference_mc_torch.parallel.comm import copy_to_model, reduce_from_model
 
 # Both Gaussian heads clip logvar to +-10 so exp(logvar) cannot overflow
@@ -125,9 +126,29 @@ def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
                     layer.stride, layer.padding)
 
 
-def _deconv(layer: nn.ConvTranspose2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    return F.conv_transpose2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
-                              layer.stride, layer.padding)
+def deconv_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """Flax's SAME ConvTranspose with a 3x3 kernel on NCHW ``x`` (n x n) as
+    PyTorch computes it: padding 1 at stride 1; at stride 2, padding 0 and
+    the output cropped to 2n x 2n, the row and column SAME drops."""
+    n = x.shape[-1]
+    y = F.conv_transpose2d(x, weight, bias, stride, 1 if stride == 1 else 0)
+    return y[..., : 2 * n, : 2 * n] if stride == 2 else y
+
+
+def deconv_chain(layers: Sequence[nn.ConvTranspose2d], x: torch.Tensor, dtype,
+                 frame: bool = True) -> torch.Tensor:
+    """The decoder's transposed convs on NCHW ``x`` through cuDNN: each layer
+    in ``dtype``, the stride-2 layers cropped to SAME, ReLU after each layer,
+    except that with ``frame`` the last layer ends in the sigmoid, computed
+    in float32 or the input's wider dtype."""
+    for i, layer in enumerate(layers):
+        x = deconv_same(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                        layer.stride[0])
+        if frame and i == len(layers) - 1:
+            return torch.sigmoid(x.to(torch.promote_types(x.dtype, torch.float32)))
+        x = F.relu(x)
+    return x
 
 
 def he_uniform_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -228,7 +249,13 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """P(o|s): 3 FC(256) + FC(16*16*64), dropout after each, then 4 SAME
     transposed convs and a sigmoid. Resolution 64 uses a stride-2 third
-    deconv, 32 a stride-1 one."""
+    deconv, 32 a stride-1 one.
+
+    Where ``ops/cuda/deconv.use_kernel`` holds (a card, float32, no
+    autograd recording, TF32 allowed), the transposed convs run as the
+    hand-written NHWC kernel, which applies the last dense layer's ReLU as
+    it loads (it commutes with the dropout's positive scale); otherwise as
+    ``deconv_chain``, cuDNN's NCHW chain."""
 
     def __init__(self, s_dim: int = 10, colour_channels: int = 1,
                  resolution: int = 64, dropout_rate: float = 0.5, dtype=torch.float32):
@@ -257,19 +284,17 @@ class Decoder(nn.Module):
         return _draw_masks(rows, self.widths, self.dropout_rate, generator, device)
 
     def forward(self, s: torch.Tensor, masks: Masks = None):
+        fused = deconv.use_kernel(s.device, self.compute_dtype)
         x = s
         for i in range(4):
-            x = F.relu(self.fc[i](x))
-            x = _dropout(x, _mask(self.fc[i], masks, i), self.dropout_rate)
-        x = x.reshape(x.shape[0], 16, 16, 64).permute(0, 3, 1, 2).contiguous()
-        for i, layer in enumerate(self.deconv):
-            n = x.shape[-1]
-            x = _deconv(layer, x, self.compute_dtype)
-            if layer.stride[0] == 2:
-                x = x[..., : 2 * n, : 2 * n]  # SAME crop of the padding=0 output
-            if i < 3:
+            x = self.fc[i](x)
+            if i < 3 or not fused:  # the kernel applies the last ReLU as it loads
                 x = F.relu(x)
-        return torch.sigmoid(x.float())
+            x = _dropout(x, _mask(self.fc[i], masks, i), self.dropout_rate)
+        if fused:
+            return deconv.decode_frames(x.reshape(x.shape[0], *deconv.DENSE_SHAPE), self.deconv)
+        x = x.reshape(x.shape[0], 16, 16, 64).permute(0, 3, 1, 2).contiguous()
+        return deconv_chain(self.deconv, x, self.compute_dtype)
 
 
 class VAE(nn.Module):

@@ -10,4 +10,4 @@ import collections
 LAUNCHES: collections.Counter = collections.Counter()
 
 # Kernel names; each has a ``<name>.cu`` source and a ``<name>.py`` wrapper.
-KERNELS = ("render",)
+KERNELS = ("render", "deconv")

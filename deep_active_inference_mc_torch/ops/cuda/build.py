@@ -18,6 +18,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from deep_active_inference_mc_torch.ops.cuda import KERNELS
 from deep_active_inference_mc_torch.utils import profiling
 
 SOURCE_DIR = Path(__file__).resolve().parent
@@ -74,7 +75,9 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
 
 @profiling.spanned("k1.load")
 def load(name: str) -> ctypes.CDLL:
-    """The library of kernel ``name``, built first if needed (a span:
-    ``k1.load``, K1 being the one kernel)."""
-    build([name])
+    """The library of kernel ``name``, built first if needed together with
+    every other missing kernel, so that a checkout's first run waits for the
+    longest build and not for their sum. A span: ``k1.load``, the name it
+    took when K1 was the one kernel."""
+    build([name, *KERNELS])
     return ctypes.CDLL(str(library_path(name)))

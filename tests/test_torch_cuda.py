@@ -1,4 +1,5 @@
-"""PyTorch port: the hand-written CUDA kernels against their plain PyTorch
+"""PyTorch port: the hand-written CUDA kernels (K1 and the decoder's
+transposed convs) against their plain PyTorch
 versions on a card, and the training round, the checkpoint, the MCTS
 sweeps, the distillation replay, the demo, the causal round and the
 benchmark's env steps on a card.
@@ -9,16 +10,20 @@ imports no JAX, so it also runs where JAX is absent:
 """
 
 import argparse
+import copy
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from deep_active_inference_mc_torch.apps import demo as demo_app
 from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import dsprites as tenv
 from deep_active_inference_mc_torch.envs import raster as traster
+from deep_active_inference_mc_torch.models import networks
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+from deep_active_inference_mc_torch.ops.cuda import deconv as k_deconv
 from deep_active_inference_mc_torch.ops.cuda import render as k_render
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.models.causal import StructuralCausalModel
@@ -362,3 +367,189 @@ def test_bench_env_steps_launches_k1_once_per_step(cuda_device):
     rate = bench.bench_env_steps(lut, batch=4096, iters=4, reps=1)
     assert LAUNCHES["render"] == 8
     assert math.isfinite(rate) and rate > 0
+
+
+# ---- the decoder's transposed convs (ops/cuda/deconv.py) --------------------
+
+DECONV_LAUNCHES = 4  # per decode: one per layer
+
+
+def deconv_decoder(resolution, colours, device, seed=0) -> networks.Decoder:
+    """A seeded decoder with nonzero biases on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    dec = networks.Decoder(colour_channels=colours, resolution=resolution)
+    networks.he_uniform_init_(dec, g)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.dim() == 1:
+                p.uniform_(-0.1, 0.1, generator=g)
+    return dec.to(device)
+
+
+def deconv_layer_input(i, B, width, cin, device, seed):
+    """A layer's NHWC input: the first layer's before the dense ReLU (half
+    negative); the others after a ReLU and in TF32, as the layer before
+    writes them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, width, width, cin), generator=g)
+    return (x if i == 0 else k_deconv.tf32_round(F.relu(x))).to(device)
+
+
+DECONV_CASES = [(B, res, c) for B in (1, 33, 512) for res, c in
+                ((64, 1), (64, 3), (32, 1), (32, 3))] + [(4096, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,resolution,colours", DECONV_CASES)
+def test_deconv_kernel_layers_match_plain(cuda_device, B, resolution, colours):
+    """Each layer's launch against ``layer_tf32``, that layer in float64
+    with the kernel's TF32 operands: beyond the half TF32 unit of its own
+    output rounding, within FP32 summation's bound (``layer_tf32_share``).
+    The whole stack's frame within ``FRAME_ATOL`` of ``decode_frames_tf32``.
+    Both also near the plain version in float64, whose distance from the
+    TF32 model is TF32's own error."""
+    dec = deconv_decoder(resolution, colours, cuda_device, seed=B)
+    layers = list(dec.deconv)
+    layers64 = [copy.deepcopy(layer).double() for layer in layers]
+    width = 16
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            first, last = i == 0, i == len(layers) - 1
+            x = deconv_layer_input(i, B, width, layer.weight.shape[0], cuda_device, seed=B + i)
+            before = LAUNCHES["deconv"]
+            got = k_deconv.layer_cuda(x, layer, first, last)
+            torch.cuda.synchronize()
+            assert LAUNCHES["deconv"] == before + 1
+            plain = k_deconv.layer_plain(x.double(), layers64[i], first, last)
+            assert got.shape == plain.shape, (i, got.shape, plain.shape)
+            share = k_deconv.layer_tf32_share(got, x, layer, first, last)
+            assert float(share.max()) <= 1.0, (i, float(share.max()))
+            assert float((got.double() - plain).abs().max()) < 2.0 ** -6 * float(plain.abs().max())
+            width = got.shape[1]
+        x = deconv_layer_input(0, B, 16, 64, cuda_device, seed=B + 10)
+        got = k_deconv.decode_frames(x, layers)
+        want = k_deconv.decode_frames_tf32(x, layers)
+        plain = k_deconv.decode_frames_plain(x.double(), layers64)
+    assert got.shape == (B, colours, resolution, resolution)
+    assert float((got.double() - want).abs().max()) <= k_deconv.FRAME_ATOL
+    assert float((got.double() - plain).abs().max()) <= 2.0 ** -8
+
+
+@pytest.mark.cuda
+def test_deconv_kernel_rows_are_independent(cuda_device):
+    """A row decoded alone gives the bits it gets inside a 4096-row batch,
+    and two runs give the same bits (no atomics, no split-K)."""
+    dec = deconv_decoder(64, 1, cuda_device)
+    x = deconv_layer_input(0, 4096, 16, 64, cuda_device, seed=5)
+    with torch.no_grad():
+        full = k_deconv.decode_frames(x, dec.deconv)
+        assert torch.equal(full, k_deconv.decode_frames(x, dec.deconv))
+        for i in (0, 1, 2047, 4095):
+            alone = k_deconv.decode_frames(x[i:i + 1].contiguous(), dec.deconv)
+            assert torch.equal(alone[0], full[i]), i
+        assert torch.equal(k_deconv.decode_frames(x[:33].contiguous(), dec.deconv), full[:33])
+
+
+@pytest.mark.cuda
+def test_deconv_graphed_decode_equals_eager(cuda_device):
+    """A decode captured in a CUDA graph and replayed on new input gives
+    the eager launches' bits; the capture counts its launches once."""
+    dec = deconv_decoder(64, 1, cuda_device)
+    x = deconv_layer_input(0, 512, 16, 64, cuda_device, seed=1)
+    x2 = deconv_layer_input(0, 512, 16, 64, cuda_device, seed=2)
+    with torch.no_grad():
+        k_deconv.decode_frames(x, dec.deconv)  # the first launch, outside any capture
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k_deconv.decode_frames(static, dec.deconv)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = LAUNCHES["deconv"]
+        with torch.cuda.graph(graph):
+            out = k_deconv.decode_frames(static, dec.deconv)
+        assert LAUNCHES["deconv"] == before + DECONV_LAUNCHES
+        static.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k_deconv.decode_frames(x2, dec.deconv))
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k_deconv.decode_frames(x, dec.deconv))
+
+
+@pytest.mark.cuda
+def test_graphed_ai_sweep_launches_the_deconv_kernel_per_decode(cuda_device):
+    """A graphed ai sweep decodes three times per macro step through the
+    kernel: 12 launches a macro step, warm-up, capture and replays alike."""
+    cfg = Config()
+    agent = ActiveInferenceAgent().init(torch.Generator().manual_seed(0)).to(cuda_device)
+    lut = traster.build_sprite_lut(cuda_device)
+    before = LAUNCHES["deconv"]
+    out = sweep_lib.run_sweep(agent, cfg, lut, seed=3, n_envs=64, n_macro_steps=4,
+                              method="ai")
+    assert LAUNCHES["deconv"] == before + 3 * DECONV_LAUNCHES * 4
+    assert bool(torch.isfinite(out["scores"]).all())
+
+
+@pytest.mark.cuda
+def test_train_round_launches_the_deconv_kernel_from_the_generator(cuda_device):
+    """A crn + gen_mean round: the generator's 4 action columns x 3 decodes
+    go through the kernel (48 launches); the losses' decode, with its
+    backward, does not."""
+    cfg = Config(batch=64, crn=True, gen_mean=True, edge_frac=0.3)
+    gen = seeded_generator(cuda_device, 0)
+    state = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen, cuda_device)
+    round_fn = train_loop.make_round_fn(cfg, traster.build_sprite_lut(cuda_device))
+    before = LAUNCHES["deconv"]
+    state, metrics = round_fn(state, gen)
+    assert LAUNCHES["deconv"] == before + 4 * 3 * DECONV_LAUNCHES
+    assert all(v.is_cuda and bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def _decoder_chain(dec, s):
+    """The decoder through ``networks.deconv_chain``, cuDNN's NCHW chain:
+    dense layers, transposed convs, the SAME crop, ReLU, sigmoid."""
+    x = s
+    for i in range(4):
+        x = F.relu(dec.fc[i](x))
+    x = x.reshape(x.shape[0], 16, 16, 64).permute(0, 3, 1, 2).contiguous()
+    return networks.deconv_chain(dec.deconv, x, dec.compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grad", "bf16", "tf32_off"])
+def test_other_decodes_keep_cudnn(cuda_device, case):
+    """With autograd, in bf16 and with TF32 off the decoder launches no
+    kernel of its own; under autograd its frame and gradients equal the
+    chain it ran before (cuDNN deterministic, so the bits are stable)."""
+    dec = deconv_decoder(64, 1, cuda_device)
+    s = torch.randn((64, 10), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = case != "tf32_off"
+    try:
+        before = LAUNCHES["deconv"]
+        if case == "grad":
+            got = dec(s)
+            grads = torch.autograd.grad(got.square().sum(), list(dec.parameters()))
+            want = _decoder_chain(dec, s)
+            want_grads = torch.autograd.grad(want.square().sum(), list(dec.parameters()))
+            assert torch.equal(got, want)
+            assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+        else:
+            if case == "bf16":
+                dec16 = networks.Decoder(dtype=torch.bfloat16).to(cuda_device)
+                dec16.load_state_dict(dec.state_dict())
+                dec = dec16
+            with torch.no_grad():
+                got = dec(s)
+            assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+            if case == "tf32_off":
+                with torch.no_grad():
+                    assert torch.equal(got, _decoder_chain(dec, s))
+        assert LAUNCHES["deconv"] == before
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
