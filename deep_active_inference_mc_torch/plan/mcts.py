@@ -50,6 +50,15 @@ iterations op by op, each drawing as it goes, its walks as long as the
 tree is deep.
 
 Everything runs under ``torch.inference_mode()``.
+
+Spans and counters (``utils/profiling.py``): every search is a span
+``mcts.plan``; it counts the iterations its batch ran
+(``mcts.iterations``), the sum of its envs' ``repeats_done``
+(``mcts.env_iterations``) and its phase-A short-circuits
+(``mcts.short_circuits``), the last two summed on the device. A graphed
+``make_jit_planner`` records a pair of CUDA events around the search step
+inside its graph and keeps the last replay's time of each plan as the
+device span ``mcts.device`` once the host has synced (``profiling.settle``).
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
 from deep_active_inference_mc_torch.models.networks import reparameterize
 from deep_active_inference_mc_torch.ops import math as m
 from deep_active_inference_mc_torch.utils import graphs as graphs_lib
+from deep_active_inference_mc_torch.utils import profiling
 from deep_active_inference_mc_torch.utils import random as rnd
 from deep_active_inference_mc_torch.utils.device import seeded_generator
 
@@ -682,16 +692,22 @@ def _iteration_k(agent, tree: _Tree, p: MCTSParams, i: Step, gen, d, paths_buf, 
     tree.done = _phase_b_done(tree, p)
 
 
-def _search_step(agent, p: MCTSParams):
+def _search_step(agent, p: MCTSParams, events=None):
     """The search loop's body: ((i, tree, paths_buf, paths_G_buf), (generator,
     IterationDraws)) -> the state after iteration i, the tree updated in
-    place."""
+    place. ``events``: a pair of CUDA events recorded around the iteration
+    while a graph captures it."""
     step = _iteration_k if p.expand_k > 1 else _iteration
 
     def body(state, x):
         i, tree, paths_buf, paths_G_buf = state
         gen, d = x
+        timed = events is not None and torch.cuda.is_current_stream_capturing()
+        if timed:
+            events[0].record()
         step(agent, tree, p, i, gen, d, paths_buf, paths_G_buf)
+        if timed:
+            events[1].record()
         return i + 1, tree, paths_buf, paths_G_buf
 
     return body
@@ -703,15 +719,15 @@ def _all_done(state) -> torch.Tensor:
 
 def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, i_end: int,
                 draws: Optional[Sequence[IterationDraws]] = None,
-                graphs: Optional[graphs_lib.Graphs] = None) -> SearchCarry:
+                graphs: Optional[graphs_lib.Graphs] = None, events=None) -> SearchCarry:
     """Advance the search until iteration ``i_end`` (clamped to the repeat
     budget) or until every env has decided. The all-done flag is read one
     iteration late (module docstring), so at most one no-op iteration runs
     after the last decision. ``graphs``: replay one captured iteration per
     iteration, each fed ``draw_iteration``'s noise (or the injected
     ``draws[i]``, whole); the tree then lives in the graph's buffers, which
-    ``carry`` points at. None: op by op, the tree updated in place. Returns
-    ``carry``."""
+    ``carry`` points at. None: op by op, the tree updated in place.
+    ``events``: ``_search_step``'s. Returns ``carry``."""
     tree = carry.tree
     B, _, A = tree.W.shape
     dev = tree.W.device
@@ -727,7 +743,7 @@ def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, 
         return None, draw_iteration(agent, p, B, gen, dev) if d is None else _check_whole(d, p)
 
     xs = (inputs(i) for i in range(start, start + n))
-    body = _search_step(agent, p)
+    body = _search_step(agent, p, events)
     if graphs is None:
         state = (start, tree, carry.paths_buf, carry.paths_G_buf)
         state, ran = graphs_lib.eager_while_loop(body, state, xs, n, _all_done)
@@ -775,9 +791,10 @@ def _finalize_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSPar
     )
 
 
+@profiling.spanned("mcts.plan")
 def _search(agent, frames: torch.Tensor, p: MCTSParams, seed_path, collect_paths: bool,
             return_tree: bool, draws: Optional[SearchDraws],
-            graphs: Optional[graphs_lib.Graphs]) -> MCTSResult:
+            graphs: Optional[graphs_lib.Graphs], events=None) -> MCTSResult:
     B, A = frames.shape[0], agent.pi_dim
     n_iters, n_expansions, _ = _budget(p, A)
     carry = _init_search(agent, frames, p, seed_path, draws)
@@ -786,8 +803,11 @@ def _search(agent, frames: torch.Tensor, p: MCTSParams, seed_path, collect_paths
                                      device=frames.device)
         carry.paths_G_buf = torch.zeros((n_expansions, B), device=frames.device)
     carry = _run_search(agent, carry, p, n_iters, None if draws is None else draws.iterations,
-                        graphs)
+                        graphs, events)
     res = _finalize_search(agent, carry, p, None if draws is None else draws.final_gumbel)
+    profiling.count("mcts.iterations", carry.i)
+    profiling.count("mcts.env_iterations", res.repeats_done)
+    profiling.count("mcts.short_circuits", carry.habit_done)
     # Copies, as in _finalize_search.
     tree_out = None
     if return_tree:
@@ -832,16 +852,28 @@ def make_jit_planner(agent: ActiveInferenceAgent, p: MCTSParams, collect_paths: 
     calls (``plan.graphs``: one per batch size; module docstring).
     ``graphed``: None, on a card; True raises on the CPU; False runs op by
     op (a mesh's planner: gloo cannot be captured). The weights are read
-    where they live, so in-place updates need no new capture."""
+    where they live, so in-place updates need no new capture. ``plan.last``
+    is the last call's result; a graphed plan times its search step
+    (``mcts.device``, module docstring)."""
     graphs = graphs_lib.Graphs()
+    events = []  # the timing pair, made at the first graphed plan
 
     @torch.inference_mode()
     def plan(frames: torch.Tensor, seed_path: Optional[Sequence[int]] = None,
              draws: Optional[SearchDraws] = None) -> MCTSResult:
-        return _search(agent, frames, p, seed_path, collect_paths, False, draws,
-                       graphs if graphs_lib.use_graphs(graphed, frames) else None)
+        g = graphs if graphs_lib.use_graphs(graphed, frames) else None
+        if g is not None and frames.is_cuda and not events:
+            events.extend(torch.cuda.Event(enable_timing=True, external=True)
+                          for _ in range(2))
+        replays = graphs.replays
+        plan.last = _search(agent, frames, p, seed_path, collect_paths, False, draws, g,
+                            events if g is not None and events else None)
+        if graphs.replays > replays:
+            profiling.record_device_events("mcts.device", *events)
+        return plan.last
 
     plan.graphs = graphs
+    plan.last = None
     return plan
 
 

@@ -256,7 +256,8 @@ def make_sweep(
     macro step's draws from the generator ``sweep.draws``, the chunk's host
     sync ``sweep.readback``. A graphed ``ai``, ``t1`` or ``t12`` sweep times
     G inside its graph with a pair of CUDA events and, after each chunk
-    with a replay, keeps the last replay's time as ``efe.device``."""
+    with a replay, keeps the last replay's time as ``efe.device``; after
+    the sync the planner's pending ``mcts.device`` settles."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     if mcts_params is None:
@@ -375,6 +376,7 @@ def make_sweep(
             })
         if g_events is not None and graphs.replays > replays:  # the device is idle here
             profiling.record_device("efe.device", g_events[0].elapsed_time(g_events[1]) / 1e3)
+        profiling.settle()  # the planner's mcts.device
         if record_traj:
             out["score_traj"] = score_t
         if use_queue:

@@ -18,10 +18,17 @@ by the span's children) of every span since the start or the last
 ``reset()`` (``totals()``). While a torch profiler runs, a span also
 enters ``record_function(name)``, so it shows by name in the profiler's
 trace. ``record_device(name, seconds)`` keeps a duration measured on the
-device (CUDA events) as a span of no thread. The span counts are the
-port's counters; besides them ``ops.cuda.LAUNCHES`` counts K1's launches
-and ``Graphs.captures`` / ``replays`` a graph cache's work. The epoch line
-reports throughput.
+device (CUDA events) as a span of no thread, and
+``record_device_events(name, start, end)`` the time between two events
+that a graph still to be replayed records, once ``settle()`` finds its end
+event done (the callers settle where the host has synced anyway).
+
+``count(name, n)`` adds to one of the port's named counters: a number on
+the host, or a tensor that is summed into an accumulator on its own device
+without a host sync; ``counters()`` reads them all (waiting for those on a
+device). Besides them and the span counts, ``ops.cuda.LAUNCHES`` counts
+the kernels' launches and ``Graphs.captures`` / ``replays`` a graph
+cache's work. The epoch line reports throughput.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import functools
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, NamedTuple, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -59,6 +66,9 @@ _lock = threading.Lock()
 _ring: collections.deque = collections.deque(maxlen=RING)
 _totals: Dict[str, List[int]] = {}
 _local = threading.local()
+_counts: Dict[str, Union[int, float]] = {}  # host counters
+_device_counts: Dict[Tuple[str, torch.device], torch.Tensor] = {}  # accumulators
+_pending: Dict[str, tuple] = {}  # device spans whose events may still run
 
 
 def _profiler_running() -> bool:
@@ -134,6 +144,63 @@ def record_device(name: str, seconds: float) -> None:
     _keep(Span(name, None, end - ns, end, ns, None))
 
 
+def record_device_events(name: str, start: "torch.cuda.Event",
+                         end: "torch.cuda.Event") -> None:
+    """Keep the time from ``start`` to ``end`` as a device span ``name``
+    once ``settle()`` finds ``end`` done. The events may be recorded by a
+    graph's replays: a pair kept again before it settles is read once."""
+    with _lock:
+        _pending[name] = (start, end)
+
+
+def settle() -> None:
+    """Keep, as ``record_device`` does, each pending device span whose end
+    event has completed; one still running stays pending. Never waits."""
+    with _lock:
+        items = list(_pending.items())
+    for name, pair in items:
+        if not pair[1].query():
+            continue
+        with _lock:
+            if _pending.get(name) is not pair:  # kept again meanwhile
+                continue
+            del _pending[name]
+        try:
+            seconds = pair[0].elapsed_time(pair[1]) / 1e3
+        except RuntimeError:  # an event that no replay has recorded yet
+            continue
+        record_device(name, seconds)
+
+
+def count(name: str, n: Union[int, float, torch.Tensor] = 1) -> None:
+    """Add ``n`` to the counter ``name``. A tensor is summed on its device
+    into that device's accumulator of the counter, with no host sync."""
+    if not isinstance(n, torch.Tensor):
+        with _lock:
+            _counts[name] = _counts.get(name, 0) + n
+        return
+    with torch.inference_mode():
+        x = n.detach().sum()
+        x = x.to(torch.float64 if x.is_floating_point() else torch.int64)
+        with _lock:
+            acc = _device_counts.get((name, x.device))
+            if acc is None:
+                _device_counts[(name, x.device)] = x.clone()
+            else:
+                acc.add_(x)
+
+
+def counters() -> Dict[str, Union[int, float]]:
+    """Every counter since ``reset()``, its accumulators on devices read to
+    the host (this waits for the work that adds to them)."""
+    with _lock:
+        out = dict(_counts)
+        accs = list(_device_counts.items())
+    for (name, _), acc in accs:
+        out[name] = out.get(name, 0) + acc.item()
+    return out
+
+
 def spans() -> List[Span]:
     """The last ``RING`` spans, in the order they ended."""
     with _lock:
@@ -147,10 +214,14 @@ def totals() -> Dict[str, Totals]:
 
 
 def reset() -> None:
-    """Forget every span kept so far (spans open now are kept at their end)."""
+    """Forget every span and counter kept so far (spans open now are kept at
+    their end)."""
     with _lock:
         _ring.clear()
         _totals.clear()
+        _counts.clear()
+        _device_counts.clear()
+        _pending.clear()
 
 
 @contextlib.contextmanager
