@@ -21,11 +21,24 @@ Where this differs from the JAX module, with the same results:
     knows: after ``n`` expansions no path from the root is longer than
     ``n + 1``, and a step in which no env walks changes nothing, so
     ``min(max_depth, n + 1)`` steps give the same arrays with no sync.
-  - The JAX search loop stops when every env is done. Here the all-done
-    flag is read one iteration late, from a pinned buffer whose copy was
-    enqueued before that iteration, so the card always has an iteration
-    queued. An iteration in which every env is done writes nothing, so only
-    ``SearchCarry.i`` can differ.
+  - The JAX search loop stops when every env is done. Here the count of
+    envs still searching is read one iteration late, from a pinned buffer
+    whose copy was enqueued before that iteration, so the card always has
+    an iteration queued. An iteration in which every env is done writes
+    nothing, so only ``SearchCarry.i`` can differ.
+  - The JAX loop computes every env's rows until the last env decides.
+    Here the search compacts its batch (``_run_compacted``): once the count
+    read is half the bucket or less, and the bucket is above
+    ``MIN_BUCKET``, the bucket's rows go back into the whole batch's state
+    by env, and the envs not known to have decided, padded with decided
+    ones, move into the smallest power-of-two bucket that holds them. The
+    search goes on at the same iteration, and each env reads the rows of
+    the whole batch's noise it reads without compaction, so a compacted
+    search gives the same results wherever an env's evaluation does not
+    depend on the other rows of its batch. The schedule depends on the done
+    masks alone, so a search planned again compacts alike. A decided env's
+    tree is frozen, so retiring it late is exact; its ``all_paths_G`` rows
+    after it left the batch are not computed.
   - The tree is updated in place. A done env's rows are frozen and ``done``
     only grows, so a caller may finalize a retired env any number of
     iterations later; ``_gather_carry`` copies.
@@ -36,15 +49,17 @@ Where this differs from the JAX module, with the same results:
 
 The compiled planner (``make_jit_planner``, the counterpart of the JAX
 package's): on a card the search loop, the JAX module's ``lax.while_loop``,
-is one captured CUDA graph of one iteration, replayed until every env has
-decided (``utils/graphs.py``, ``Graphs.while_loop``). The graph's body is
+is one captured CUDA graph of one iteration per bucket size, replayed until
+every env has decided (``utils/graphs.py``, ``Graphs.while_loop``); the first
+compaction of a search captures every smaller bucket's graph at once, so a
+later search replays whatever buckets it meets. The graph's body is
 the eager iteration with a device iteration counter: the slots and the path
 rows come from index arithmetic on it, and the walks take ``max_depth``
 steps (the steps beyond a path's end change nothing). Each iteration's
 noise is drawn ahead by ``draw_iteration`` from the iteration's own
 generator, in the order the eager iteration draws it, so a graphed search
-gives the eager search's numbers. The plain planner keeps one graph per
-batch size, the bucketed one per bucket size, in one memory pool;
+gives the eager search's numbers; a bucket's graph gathers its envs' rows
+of the whole batch's noise. The planners keep their graphs in one memory pool;
 initialization and the final walk run eagerly. ``graphed=False`` runs the
 iterations op by op, each drawing as it goes, its walks as long as the
 tree is deep.
@@ -53,18 +68,21 @@ Everything runs under ``torch.inference_mode()``.
 
 Spans and counters (``utils/profiling.py``): every search is a span
 ``mcts.plan``; it counts the iterations its batch ran
-(``mcts.iterations``), the sum of its envs' ``repeats_done``
+(``mcts.iterations``), the rows those iterations computed, each
+iteration's bucket size summed on the host (``mcts.row_iterations``), its
+compactions (``mcts.compactions``), the sum of its envs' ``repeats_done``
 (``mcts.env_iterations``) and its phase-A short-circuits
 (``mcts.short_circuits``), the last two summed on the device. A graphed
 ``make_jit_planner`` records a pair of CUDA events around the search step
-inside its graph and keeps the last replay's time of each plan as the
-device span ``mcts.device`` once the host has synced (``profiling.settle``).
+inside its whole batch's graph (not a bucket's) and keeps the last replay's
+time of each plan as the device span ``mcts.device`` once the host has
+synced (``profiling.settle``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -80,6 +98,10 @@ from deep_active_inference_mc_torch.utils.device import seeded_generator
 
 # Streams under a search's seed path.
 _ITER_STREAM, _INIT_STREAM, _FINAL_STREAM = 0, 1, 2
+
+# The smallest bucket of a compacted search (module docstring): on an H100 a
+# halving below it saves less than a tenth of an iteration's time (PERF.md).
+MIN_BUCKET = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -692,71 +714,255 @@ def _iteration_k(agent, tree: _Tree, p: MCTSParams, i: Step, gen, d, paths_buf, 
     tree.done = _phase_b_done(tree, p)
 
 
+@dataclasses.dataclass
+class _BucketRows:
+    """Where a bucket's envs sit in an iteration's draws over the whole
+    batch of ``batch`` envs (``draw_iteration``'s layouts): the envs (the
+    walks' Gumbel noise), the expand's G rows, the habit rollout's rows, the
+    trajectory's depth-major rows and, for the fused evaluator, the rows of
+    its one transition pass (expand pass 1, pass 2, trajectory)."""
+
+    batch: int
+    env: torch.Tensor
+    expand: torch.Tensor
+    rollout: torch.Tensor
+    trajectory: torch.Tensor
+    fused_masks: Optional[torch.Tensor]
+
+
+def _bucket_rows(env: torch.Tensor, B: int, p: MCTSParams, A: int) -> _BucketRows:
+    """``_BucketRows`` of the envs ``env`` of a batch of B. A row of
+    expand_k * B leaves is walk-major (j * B + b); an expand's G rows are
+    (leaf, action), action fastest (one row a leaf under ``crn``), sample-major
+    under the sampled estimator; a rollout's are (leaf, repeat)."""
+    dev = env.device
+    L, R = p.expand_k * B, p.simulation_repeats
+    per_leaf = 1 if p.crn else A
+
+    def blocks(idx, n, stride):  # idx + c * stride for c < n, c slowest
+        return (torch.arange(n, device=dev)[:, None] * stride + idx).flatten()
+
+    def spread(idx, n):  # idx * n + c for c < n, c fastest
+        return (idx[:, None] * n + torch.arange(n, device=dev)).flatten()
+
+    leaf = blocks(env, p.expand_k, B)
+    g_rows = spread(leaf, per_leaf)
+    rollout = spread(leaf, R)
+    trajectory = blocks(rollout, p.simulation_depth, L * R)
+    fused = None
+    if p.fused_eval and p.use_means:  # no crn: (leaf, action) rows
+        fused = torch.cat([g_rows, L * A + g_rows, 2 * L * A + trajectory])
+    return _BucketRows(B, env, blocks(g_rows, 1 if p.use_means else p.samples, L * per_leaf),
+                       rollout, trajectory, fused)
+
+
+def _gather_draws(d: IterationDraws, rows: _BucketRows) -> IterationDraws:
+    """A bucket's share of ``d``, an iteration's whole-batch draws: each env
+    gets the noise it gets in the whole batch."""
+    def take(x, idx, dim=0):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.index_select(dim, idx)
+        return type(x)(take(v, idx, dim) for v in x)  # keep-masks: sequences
+
+    def rollout(r: efe.HabitRolloutDraws):
+        return efe.HabitRolloutDraws(take(r.gumbel, rows.rollout, 1), take(r.masks, rows.rollout),
+                                     take(r.eps, rows.rollout, 1))
+
+    out = IterationDraws(select=take(d.select, rows.env, 2))
+    if d.fused is not None:
+        f, traj = d.fused, rows.trajectory
+        out.fused = FusedDraws(rollout(f.rollout), take(f.masks, rows.fused_masks),
+                               take(f.eps_traj, traj), take(f.eps_rep1, rows.expand),
+                               take(f.eps_rep2, traj))
+    if d.expand is not None:
+        out.expand = efe.GDraws(*(take(getattr(d.expand, f.name), rows.expand)
+                                  for f in dataclasses.fields(efe.GDraws)))
+    if d.simulate is not None:
+        t = d.simulate.trajectory
+        out.simulate = efe.SimulateDraws(
+            rollout(d.simulate.rollout),
+            efe.TrajectoryDraws(*(take(x, rows.trajectory) for x in (t.masks, t.eps, t.eps_fixed))))
+    return out
+
+
 def _search_step(agent, p: MCTSParams, events=None):
-    """The search loop's body: ((i, tree, paths_buf, paths_G_buf), (generator,
-    IterationDraws)) -> the state after iteration i, the tree updated in
-    place. ``events``: a pair of CUDA events recorded around the iteration
-    while a graph captures it."""
+    """The search loop's body: ((i, tree, paths_buf, paths_G_buf, rows),
+    (generator, IterationDraws)) -> the state after iteration i, the tree
+    updated in place. ``rows``: None over the whole batch; a bucket's
+    ``_BucketRows``, which pick its envs' noise out of the whole batch's.
+    ``events``: a pair of CUDA events recorded around the iteration while a
+    graph captures it."""
     step = _iteration_k if p.expand_k > 1 else _iteration
 
     def body(state, x):
-        i, tree, paths_buf, paths_G_buf = state
+        i, tree, paths_buf, paths_G_buf, rows = state
         gen, d = x
+        if rows is not None:
+            d = _gather_draws(d, rows)
         timed = events is not None and torch.cuda.is_current_stream_capturing()
         if timed:
             events[0].record()
         step(agent, tree, p, i, gen, d, paths_buf, paths_G_buf)
         if timed:
             events[1].record()
-        return i + 1, tree, paths_buf, paths_G_buf
+        return i + 1, tree, paths_buf, paths_G_buf, rows
 
     return body
 
 
-def _all_done(state) -> torch.Tensor:
-    return state[1].done.all()
+def _active(state) -> torch.Tensor:
+    """The envs still searching: the loop's stop value, read one iteration
+    late."""
+    return (~state[1].done).sum()
 
 
-def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, i_end: int,
-                draws: Optional[Sequence[IterationDraws]] = None,
-                graphs: Optional[graphs_lib.Graphs] = None, events=None) -> SearchCarry:
-    """Advance the search until iteration ``i_end`` (clamped to the repeat
-    budget) or until every env has decided. The all-done flag is read one
-    iteration late (module docstring), so at most one no-op iteration runs
-    after the last decision. ``graphs``: replay one captured iteration per
-    iteration, each fed ``draw_iteration``'s noise (or the injected
-    ``draws[i]``, whole); the tree then lives in the graph's buffers, which
-    ``carry`` points at. None: op by op, the tree updated in place.
-    ``events``: ``_search_step``'s. Returns ``carry``."""
-    tree = carry.tree
-    B, _, A = tree.W.shape
-    dev = tree.W.device
-    n_iters, _, _ = _budget(p, A)
-    start = carry.i
-    n = max(min(int(i_end), n_iters) - start, 0)
+def _none_active(active: torch.Tensor) -> bool:
+    return int(active) == 0
+
+
+def _iteration_inputs(agent, carry: SearchCarry, p: MCTSParams,
+                      draws: Optional[Sequence[IterationDraws]], graphed: bool,
+                      rows: Optional[_BucketRows]):
+    """The loop's input of iteration i, (generator, IterationDraws): op by op
+    over the whole batch the generator (the iteration draws as it goes) and
+    ``draws[i]``; otherwise the whole batch's draws, ``draw_iteration``'s or
+    the injected ``draws[i]``, whole."""
+    dev = carry.tree.W.device
+    batch = carry.done.shape[0] if rows is None else rows.batch
 
     def inputs(i):
         gen = _generator(carry.seed_path, dev, _ITER_STREAM, i)
         d = None if draws is None else draws[i]
-        if graphs is None:
+        if not graphed and rows is None:
             return gen, d
-        return None, draw_iteration(agent, p, B, gen, dev) if d is None else _check_whole(d, p)
+        return None, draw_iteration(agent, p, batch, gen, dev) if d is None else _check_whole(d, p)
 
-    xs = (inputs(i) for i in range(start, start + n))
+    return inputs
+
+
+def _loop_state(carry: SearchCarry, rows: Optional[_BucketRows], graphed: bool):
+    """The loop's state; a graph's iteration counter lives on the device."""
+    i = carry.i
+    if graphed:
+        i = torch.full((), i, dtype=torch.long, device=carry.tree.W.device)
+    return i, carry.tree, carry.paths_buf, carry.paths_G_buf, rows
+
+
+def _loop_options(agent, p: MCTSParams, events) -> dict:
+    """A graphed loop's ``deps`` and ``key``: the timed graph is its own."""
+    return dict(deps=lambda: graphs_lib.module_deps(agent),
+                key=(p, agent.dtype, events is not None))
+
+
+def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, i_end: int,
+                draws: Optional[Sequence[IterationDraws]] = None,
+                graphs: Optional[graphs_lib.Graphs] = None, events=None,
+                until=_none_active, rows: Optional[_BucketRows] = None,
+                first=None) -> SearchCarry:
+    """Advance the search until iteration ``i_end`` (clamped to the repeat
+    budget) or until ``until`` of the count of envs still searching, read
+    one iteration late (module docstring), says stop: by default once every
+    env has decided, so at most one no-op iteration runs after the last
+    decision. ``graphs``: replay one captured iteration per iteration, each
+    fed ``draw_iteration``'s noise (or the injected ``draws[i]``, whole); the
+    tree then lives in the graph's buffers, which ``carry`` points at. None:
+    op by op, the tree updated in place. ``events``: ``_search_step``'s.
+    ``rows``: ``carry`` is a bucket of a batch, these its rows (``_search``);
+    ``first``: the first iteration's input, made already. Returns
+    ``carry``."""
+    A = carry.tree.W.shape[-1]
+    n_iters, _, _ = _budget(p, A)
+    start = carry.i
+    n = max(min(int(i_end), n_iters) - start, 0)
+    inputs = _iteration_inputs(agent, carry, p, draws, graphs is not None, rows)
+    xs = (first if i == start and first is not None else inputs(i)
+          for i in range(start, start + n))
     body = _search_step(agent, p, events)
+    state = _loop_state(carry, rows, graphs is not None)
     if graphs is None:
-        state = (start, tree, carry.paths_buf, carry.paths_G_buf)
-        state, ran = graphs_lib.eager_while_loop(body, state, xs, n, _all_done)
+        state, ran = graphs_lib.eager_while_loop(body, state, xs, n, _active, until)
     else:
-        state = (torch.full((), start, dtype=torch.long, device=dev), tree, carry.paths_buf,
-                 carry.paths_G_buf)
-        state, ran = graphs.while_loop(body, state, xs, n, _all_done,
-                                       deps=lambda: graphs_lib.module_deps(agent),
-                                       key=(p, agent.dtype))
-    _, carry.tree, carry.paths_buf, carry.paths_G_buf = state
+        state, ran = graphs.while_loop(body, state, xs, n, _active, until=until,
+                                       **_loop_options(agent, p, events))
+    _, carry.tree, carry.paths_buf, carry.paths_G_buf, _ = state
     carry.i = start + ran
     carry.done = carry.tree.done
     return carry
+
+
+def _bucket(active: int) -> int:
+    """The smallest power-of-two bucket, at least ``MIN_BUCKET``, that holds
+    ``active`` envs."""
+    return max(MIN_BUCKET, 1 << max(active - 1, 0).bit_length())
+
+
+def _scatter_carry(dst: SearchCarry, src: SearchCarry, env: torch.Tensor) -> None:
+    """Write what the search changes of a bucket ``src`` (its tree and
+    paths) into the batch ``dst`` at its envs' rows ``env``."""
+    for f in dataclasses.fields(_Tree):
+        getattr(dst.tree, f.name).index_copy_(0, env, getattr(src.tree, f.name))
+    for d, s in ((dst.paths_buf, src.paths_buf), (dst.paths_G_buf, src.paths_G_buf)):
+        if d is not None:
+            d.index_copy_(1, env, s)
+
+
+def _run_compacted(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams,
+                   draws: Optional[Sequence[IterationDraws]],
+                   graphs: Optional[graphs_lib.Graphs], events) -> List[Tuple[int, int]]:
+    """Run ``carry``'s search to its end, compacting its batch (module
+    docstring): once the count of envs still searching, read one iteration
+    late, is half the bucket or less and the bucket is above
+    ``MIN_BUCKET``, the bucket's rows go back into ``carry`` and the envs
+    not known to have decided, padded with decided ones, into the smallest
+    bucket that holds them; the search goes on there at the same
+    iteration. The first compaction of a graphed search captures every
+    smaller bucket's graph too. Counts ``mcts.row_iterations`` and
+    ``mcts.compactions``; keeps ``mcts.device`` (``events``: the whole
+    batch's graph's). Returns the (first iteration, size) of each bucket."""
+    B, A = carry.done.shape[0], carry.tree.W.shape[-1]
+    n_iters, _, _ = _budget(p, A)
+    bucket, rows, first, schedule, row_iterations = carry, None, None, [], 0
+    while True:
+        size, read = bucket.done.shape[0], []
+
+        def until(active, size=size, read=read):
+            n = int(active)
+            if n == 0 or (size > MIN_BUCKET and n <= size // 2):
+                read.append(n)
+                return True
+            return False
+
+        start, replays = bucket.i, graphs.replays if events else 0
+        _run_search(agent, bucket, p, n_iters, draws, graphs,
+                    events if rows is None else None, until, rows, first)
+        row_iterations += size * (bucket.i - start)
+        carry.i = bucket.i
+        if rows is not None:
+            _scatter_carry(carry, bucket, rows.env)
+        elif events and graphs.replays > replays:
+            profiling.record_device_events("mcts.device", *events)
+        if not read or not read[0] or bucket.i >= n_iters:
+            break
+        size = _bucket(read[0])
+        order = torch.argsort(carry.tree.done.to(torch.int32), stable=True)  # searching first
+        rows = _bucket_rows(order[:size], B, p, A)
+        bucket = _gather_carry(carry, rows.env)
+        schedule.append((bucket.i, size))
+        first = None
+        if graphs is not None and len(schedule) == 1:
+            first = _iteration_inputs(agent, carry, p, draws, True, rows)(bucket.i)
+            body = _search_step(agent, p)
+            smaller = size // 2
+            while smaller >= MIN_BUCKET:
+                spare_rows = _bucket_rows(order[:smaller], B, p, A)
+                spare = _gather_carry(carry, spare_rows.env)
+                graphs.warm_loop(body, _loop_state(spare, spare_rows, True), first, _active,
+                                 **_loop_options(agent, p, None))
+                smaller //= 2
+    carry.done = carry.tree.done
+    profiling.count("mcts.row_iterations", row_iterations)
+    profiling.count("mcts.compactions", len(schedule))
+    return schedule
 
 
 def _finalize_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams,
@@ -794,16 +1000,19 @@ def _finalize_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSPar
 @profiling.spanned("mcts.plan")
 def _search(agent, frames: torch.Tensor, p: MCTSParams, seed_path, collect_paths: bool,
             return_tree: bool, draws: Optional[SearchDraws],
-            graphs: Optional[graphs_lib.Graphs], events=None) -> MCTSResult:
+            graphs: Optional[graphs_lib.Graphs],
+            events=None) -> Tuple[MCTSResult, List[Tuple[int, int]]]:
+    """One search, compacted (``_run_compacted``): (its result, its bucket
+    schedule)."""
     B, A = frames.shape[0], agent.pi_dim
-    n_iters, n_expansions, _ = _budget(p, A)
+    _, n_expansions, _ = _budget(p, A)
     carry = _init_search(agent, frames, p, seed_path, draws)
     if collect_paths:
         carry.paths_buf = torch.full((n_expansions, B, p.max_depth), -1, dtype=torch.long,
                                      device=frames.device)
         carry.paths_G_buf = torch.zeros((n_expansions, B), device=frames.device)
-    carry = _run_search(agent, carry, p, n_iters, None if draws is None else draws.iterations,
-                        graphs, events)
+    schedule = _run_compacted(agent, carry, p, None if draws is None else draws.iterations,
+                              graphs, events)
     res = _finalize_search(agent, carry, p, None if draws is None else draws.final_gumbel)
     profiling.count("mcts.iterations", carry.i)
     profiling.count("mcts.env_iterations", res.repeats_done)
@@ -815,7 +1024,7 @@ def _search(agent, frames: torch.Tensor, p: MCTSParams, seed_path, collect_paths
                             for f in dataclasses.fields(_Tree)})
         tree_out.repeats_done, tree_out.states_explored = res.repeats_done, res.states_explored
     paths = [None if x is None else x.clone() for x in (carry.paths_buf, carry.paths_G_buf)]
-    return res._replace(all_paths=paths[0], all_paths_G=paths[1], tree=tree_out)
+    return res._replace(all_paths=paths[0], all_paths_G=paths[1], tree=tree_out), schedule
 
 
 @torch.inference_mode()
@@ -840,7 +1049,7 @@ def active_inference_mcts(agent: ActiveInferenceAgent, frames: torch.Tensor, p: 
         calls. True on the CPU raises.
     """
     graphs = graphs_lib.Graphs() if graphs_lib.use_graphs(graphed, frames) else None
-    return _search(agent, frames, p, seed_path, collect_paths, return_tree, draws, graphs)
+    return _search(agent, frames, p, seed_path, collect_paths, return_tree, draws, graphs)[0]
 
 
 def make_jit_planner(agent: ActiveInferenceAgent, p: MCTSParams, collect_paths: bool = False,
@@ -853,8 +1062,9 @@ def make_jit_planner(agent: ActiveInferenceAgent, p: MCTSParams, collect_paths: 
     ``graphed``: None, on a card; True raises on the CPU; False runs op by
     op (a mesh's planner: gloo cannot be captured). The weights are read
     where they live, so in-place updates need no new capture. ``plan.last``
-    is the last call's result; a graphed plan times its search step
-    (``mcts.device``, module docstring)."""
+    is the last call's result and ``plan.schedule`` its compactions, the
+    (first iteration, size) of each bucket; a graphed plan times its whole
+    batch's search step (``mcts.device``, module docstring)."""
     graphs = graphs_lib.Graphs()
     events = []  # the timing pair, made at the first graphed plan
 
@@ -865,27 +1075,26 @@ def make_jit_planner(agent: ActiveInferenceAgent, p: MCTSParams, collect_paths: 
         if g is not None and frames.is_cuda and not events:
             events.extend(torch.cuda.Event(enable_timing=True, external=True)
                           for _ in range(2))
-        replays = graphs.replays
-        plan.last = _search(agent, frames, p, seed_path, collect_paths, False, draws, g,
-                            events if g is not None and events else None)
-        if graphs.replays > replays:
-            profiling.record_device_events("mcts.device", *events)
+        plan.last, plan.schedule = _search(agent, frames, p, seed_path, collect_paths, False,
+                                           draws, g, events if g is not None and events else None)
         return plan.last
 
     plan.graphs = graphs
-    plan.last = None
+    plan.last, plan.schedule = None, []
     return plan
 
 
 def _gather_carry(carry: SearchCarry, idx: torch.Tensor) -> SearchCarry:
-    """Re-pack per-env search state onto the rows in ``idx`` (compaction).
-    Copies: the result shares no storage with ``carry``."""
-    take = lambda x: x.index_select(0, idx)
+    """Re-pack per-env search state onto the rows in ``idx`` (compaction),
+    the paths along their env axis. Copies: the result shares no storage
+    with ``carry``."""
+    take = lambda x, dim=0: None if x is None else x.index_select(dim, idx)
     tree = _Tree(**{f.name: take(getattr(carry.tree, f.name))
                     for f in dataclasses.fields(_Tree)})
     return dataclasses.replace(
         carry, tree=tree, done=tree.done, habit_done=take(carry.habit_done),
-        habit_action=take(carry.habit_action), root_Qpi=take(carry.root_Qpi))
+        habit_action=take(carry.habit_action), root_Qpi=take(carry.root_Qpi),
+        paths_buf=take(carry.paths_buf, 1), paths_G_buf=take(carry.paths_G_buf, 1))
 
 
 _OUT_FIELDS = ("actions", "lengths", "repeats_done", "states_explored", "depth_capped",

@@ -34,16 +34,19 @@ span (``utils/profiling.py``: ``graphs.scan``, ``graphs.while_loop``,
 ``Graphs.while_loop(body, carry, xs, n, stop)`` is the counterpart of a
 ``lax.while_loop`` whose condition reads the device (the planner's search,
 ``plan/mcts.py``): it replays one captured step until ``stop(carry)``, a
-0-d bool on the device, says stop, at most ``n`` times. The flag is read one
-step late, so the card always has a step queued: before each step it is
-copied into one of two pinned slots, and the host reads that slot before
-it enqueues the step after. At most one step runs after the flag turned
-true (a step that must then change nothing, as a search iteration with
-every env decided). There is no ``ys`` table, and the carry is not cloned
-out: it lives in the graph's static buffers (a carry that is already there
-is not copied in again) until the next loop of the same signature. The
-loop's graphs share one memory pool: their replays never overlap, and
-every output lands in buffers allocated outside the pool.
+0-d value on the device, says stop, at most ``n`` times: ``until`` reads
+the value on the host (``bool`` by default; the planner's is the count of
+envs still searching). The value is read one step late, so the card always
+has a step queued: before each step it is copied into one of two pinned
+slots, and the host reads that slot before it enqueues the step after. At
+most one step runs after the value said stop (a step that must then change
+nothing, as a search iteration with every env decided). There is no ``ys``
+table, and the carry is not cloned out: it lives in the graph's static
+buffers (a carry that is already there is not copied in again) until the
+next loop of the same signature; ``warm_loop`` captures a loop's graph
+ahead of its first loop. The loop's graphs share one memory pool: their
+replays never overlap, and every output lands in buffers allocated outside
+the pool.
 ``eager_while_loop`` is its op-by-op twin.
 
 ``Graphs.call(fn, inputs, deps, key)`` is the counterpart of ``jax.jit``
@@ -76,7 +79,8 @@ from deep_active_inference_mc_torch.utils import profiling
 
 Body = Callable[[Any, Any], Tuple[Any, Optional[torch.Tensor]]]
 LoopBody = Callable[[Any, Any], Any]  # (carry, x) -> carry
-Stop = Callable[[Any], torch.Tensor]  # carry -> 0-d bool on the carry's device
+Stop = Callable[[Any], torch.Tensor]  # carry -> 0-d value on the carry's device
+Until = Callable[[torch.Tensor], bool]  # the stop value, read on the host -> stop?
 
 
 # ---------------------------------------------------------------- trees
@@ -220,16 +224,17 @@ class HostSlots:
         return self._host[k % 2]
 
 
-def eager_while_loop(body: LoopBody, carry, xs: Iterable, n: int, stop: Stop):
+def eager_while_loop(body: LoopBody, carry, xs: Iterable, n: int, stop: Stop,
+                     until: Until = bool):
     """At most ``n`` steps of ``carry = body(carry, x)`` op by op, on any
     device, taking the inputs of ``xs`` as it goes. ``stop(carry)`` is
     copied to the host before each step; before step k > 0 the host reads
-    the copy made before step k - 1 and stops if it is true. Returns
-    (carry, steps run)."""
+    the copy made before step k - 1 and stops if ``until`` of it is true.
+    Returns (carry, steps run)."""
     xs = iter(xs)
     flags = HostSlots()
     for k in range(n):
-        if k and bool(flags.get(k - 1)):
+        if k and until(flags.get(k - 1)):
             return carry, k
         flags.put(k, stop(carry))
         carry = body(carry, next(xs))
@@ -324,8 +329,9 @@ class Graphs:
 
     @profiling.spanned("graphs.while_loop")
     def while_loop(self, body: LoopBody, carry, xs: Iterable, n: int, stop: Stop,
-                   deps: Callable[[], Sequence[torch.Tensor]] = tuple, key: Any = ()):
-        """``eager_while_loop(body, carry, xs, n, stop)`` as graph replays
+                   deps: Callable[[], Sequence[torch.Tensor]] = tuple, key: Any = (),
+                   until: Until = bool):
+        """``eager_while_loop(body, carry, xs, n, stop, until)`` as graph replays
         (the module's docstring). ``deps`` as ``scan``'s; ``key``: the
         body's static parameters, which select its graph. Returns (the
         carry in the graph's static buffers, steps run)."""
@@ -338,7 +344,7 @@ class Graphs:
             return carry, 0
         xs = iter(xs)
         x = next(xs)
-        sig = ("while_loop", spec, _flatten(x, []), key, _backend_flags())
+        sig = _loop_sig(spec, x, key)
         g = self._graphs.get(sig)
         flag = stop(carry)
         if g is not None and g.deps == _addresses(deps):
@@ -349,17 +355,32 @@ class Graphs:
             g = self._graphs[sig] = self._capture_loop(body, carry, leaves, x, flag, stop,
                                                        deps)
         for k in range(1, n):
-            if bool(g.flags.get(k - 1)):
+            if until(g.flags.get(k - 1)):
                 return rebuild(carry, g.carry), k
             g.flags.put(k, g.flag)
             self._feed(g, next(xs))
         return rebuild(carry, g.carry), n
 
+    def warm_loop(self, body: LoopBody, carry, x, stop: Stop,
+                  deps: Callable[[], Sequence[torch.Tensor]] = tuple, key: Any = ()) -> bool:
+        """Capture the graph that ``while_loop(body, carry, xs, n, stop,
+        deps, key)`` with ``x`` first in ``xs`` replays, unless it is held,
+        so that a later loop of that signature replays at once. The
+        capture's warm-up step runs on copies of ``carry``'s tensors, which
+        keep their values. Returns whether it captured."""
+        leaves: List[torch.Tensor] = []
+        sig = _loop_sig(_flatten(carry, leaves), x, key)
+        g = self._graphs.get(sig)
+        if g is not None and g.deps == _addresses(deps):
+            return False
+        self._graphs[sig] = self._capture_loop(body, carry, leaves, x, stop(carry), stop, deps)
+        return True
+
     def _capture_loop(self, body: LoopBody, carry, leaves, x, flag0, stop, deps) -> _Graph:
         """A loop's graph, in the loops' shared pool: its first step (its
         flag copied before it) is the warm-up."""
         static = [t.clone() for t in leaves]
-        flag = torch.zeros((), dtype=torch.bool, device=static[0].device)
+        flag = torch.zeros_like(flag0)
         flags = HostSlots()
         flags.put(0, flag0)
 
@@ -447,6 +468,12 @@ def _warm_up(run: Callable[[], Any]):
             t.record_stream(main)
     main.wait_stream(side)
     return out
+
+
+def _loop_sig(spec, x, key) -> tuple:
+    """A loop's graph's signature: its carry's spec, its input's, ``key``
+    and the backend flags."""
+    return ("while_loop", spec, _flatten(x, []), key, _backend_flags())
 
 
 def use_graphs(graphed: Optional[bool], device) -> bool:

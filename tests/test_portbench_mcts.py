@@ -2,7 +2,7 @@
 (``portbench/reference/mcts.py``) against the port's planner on seeded
 random weights, the cell end to end at a tiny size (a sound run is
 correct, each planted fault of ``portbench/search_faults.py`` is not), and
-the cell's four readers on synthetic spans and counters. The file imports
+the cell's five readers on synthetic spans and counters. The file imports
 no JAX."""
 
 import importlib.util
@@ -241,6 +241,21 @@ def test_plan_waste_is_the_share_of_decided_envs_iterations():
         c = dict(rec.counters)
         del c[missing]
         assert reader("plan_waste_pct.mcts")(Records(c, {}, [], None)) is None
+
+
+def test_plan_row_waste_is_the_share_of_rows_of_decided_envs():
+    """Over made-up counters of the port's registry: a quarter of the rows
+    computed went to envs that searched; a registry without the row count
+    (a program that does not compact) reads nothing."""
+    counters = {"mcts.iterations": 600, "mcts.row_iterations": 256 * 400,
+                "mcts.env_iterations": 256 * 100}
+    assert reader("plan_row_waste_pct.mcts")(EMPTY, counters) == pytest.approx(75.0)
+    for missing in ("mcts.row_iterations", "mcts.env_iterations"):
+        c = dict(counters)
+        del c[missing]
+        assert reader("plan_row_waste_pct.mcts")(EMPTY, c) is None
+    assert reader("plan_row_waste_pct.mcts")(EMPTY, dict(counters, **{
+        "mcts.row_iterations": 0})) is None
 
 
 def test_program_idle_and_mfu_of_the_planner_cell():

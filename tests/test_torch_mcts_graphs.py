@@ -27,8 +27,9 @@ of ``max_depth`` steps, each iteration's noise drawn ahead by
   under a mesh.
 
 ``cuda``-marked tests hold each graphed planner against the same planner
-op by op, bit for bit, and the mcts sweeps' planners replaying their
-graphs with the sweeps' defaults; without a card they skip. JAX and the JAX-side mocks
+op by op, bit for bit, the mcts sweeps' planners replaying their graphs
+with the sweeps' defaults, and the flagship's compacting planner against
+itself uncompacted, re-planned and op by op; without a card they skip. JAX and the JAX-side mocks
 are imported only inside the tests that use them, so the card's machine
 runs this file as
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_mcts_graphs.py``.
@@ -86,9 +87,9 @@ class EagerLoops:
     def __init__(self):
         self.loops = 0
 
-    def while_loop(self, body, carry, xs, n, stop, deps=tuple, key=()):
+    def while_loop(self, body, carry, xs, n, stop, deps=tuple, key=(), until=bool):
         self.loops += 1
-        return graphs.eager_while_loop(body, carry, xs, n, stop)
+        return graphs.eager_while_loop(body, carry, xs, n, stop, until)
 
 
 def make_agent(dtype=torch.float32, device=CPU):
@@ -501,6 +502,86 @@ def test_the_mcts_sweeps_replay_their_planners(cuda_device, monkeypatch):
         assert torch.equal(bucketed[None][0], bucketed[False][0])
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+class LazyDraws:
+    """Every iteration's whole-batch noise, ``draw_iteration``'s from the
+    iteration's own generator, drawn when asked for."""
+
+    def __init__(self, agent, p, B, device, seed):
+        self.args, self.device, self.seed = (agent, p, B), device, seed
+
+    def __getitem__(self, i):
+        g = seeded_generator(self.device, self.seed, i)
+        return tmcts.draw_iteration(*self.args, g, self.device)
+
+
+@pytest.mark.cuda
+def test_the_flagship_planner_compacts_as_it_plans_uncompacted(cuda_device, monkeypatch):
+    """The committed flagship at 256 envs with the benchmark's planner (300
+    repeats, the habit short-circuit), graphed, every iteration's noise
+    handed in whole. Exact: a re-plan through ``active_inference_mcts`` with
+    paths and tree, as the benchmark's check re-plans, equals the compacted
+    plan bit for bit, and under cuDNN's deterministic algorithms the graphed
+    compacting plan equals its op-by-op run, schedule and all. Against the
+    plan with ``MIN_BUCKET`` at 256: cuBLAS's FP32 GEMMs and cuDNN's TF32
+    convolutions pick their kernels by row count, so a bucket's G differs
+    from the whole batch's in its last bits (within four TF32 roundings,
+    4 x 2^-11, relative), and a near tie among the stragglers may fall the
+    other way: at most 8 of the 256 envs differ in actions, lengths,
+    ``repeats_done`` or root visits (PERF.md: 1-3 a plan)."""
+    from pathlib import Path
+
+    from deep_active_inference_mc_torch.apps import sweep as sweep_app
+    from deep_active_inference_mc_torch.config import Config
+
+    flagship = Path(__file__).resolve().parent.parent / "artifacts" / "run512" / "checkpoints"
+    agent = sweep_app.build_agent(Config(), str(flagship), cuda_device).eval()
+    p = tmcts.MCTSParams(repeats=300, threshold=0.5, simulation_depth=3, use_habit=True,
+                         max_depth=16)
+    o = frames_of(256, cuda_device, seed=4)
+    draws = lambda: tmcts.SearchDraws(None, LazyDraws(agent, p, 256, cuda_device, 11))
+    floor = tmcts.MIN_BUCKET
+
+    def plan(min_bucket, graphed=None):
+        monkeypatch.setattr(tmcts, "MIN_BUCKET", min_bucket)
+        planner = tmcts.make_jit_planner(agent, p, graphed=graphed)
+        return planner(o, (5,), draws=draws()), planner.schedule
+
+    compacted, schedule = plan(floor)
+    assert schedule and schedule[-1][1] < 256, schedule
+    again = tmcts.active_inference_mcts(agent, o, p, (5,), collect_paths=True,
+                                        return_tree=True, draws=draws(), graphed=None)
+    assert_same(again, compacted)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed, graphed_schedule = plan(floor)
+        eager, eager_schedule = plan(floor, graphed=False)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert_same(graphed, eager)
+    assert graphed_schedule == eager_schedule
+
+    whole, none = plan(256)
+    assert none == []
+    differ = torch.zeros(256, dtype=torch.bool, device=cuda_device)
+    for f in ("actions", "lengths", "repeats_done", "root_N"):
+        x, y = getattr(compacted, f), getattr(whole, f)
+        differ |= (x != y).reshape(256, -1).any(-1)
+    assert int(differ.sum()) <= 8, torch.nonzero(differ).flatten().tolist()
+    with torch.inference_mode():
+        g = seeded_generator(cuda_device, 9)
+        leaf = agent.encode(o)[0] + 0.3 * torch.randn((256, 10), generator=g, device=cuda_device)
+        d = tmcts.draw_iteration(agent, p, 256, g, cuda_device)
+        full = tmcts._evaluate(agent, leaf, p, None, d)
+        for size in (128, 64, 32, 16):
+            env = torch.randperm(256, generator=g, device=cuda_device)[:size].sort().values
+            rows = tmcts._bucket_rows(env, 256, p, agent.pi_dim)
+            part = tmcts._evaluate(agent, leaf[env], p, None, tmcts._gather_draws(d, rows))
+            for name, x, y in (("G_leaf", part[0], full[0]), ("G_sim", part[2], full[2])):
+                torch.testing.assert_close(x, y[env], rtol=4 * 2 ** -11, atol=0,
+                                           msg=f"{name} at {size}")
 
 
 @pytest.mark.cuda

@@ -79,7 +79,11 @@ def test_sweep_plans_are_spans_and_counted():
     plans = by_name("mcts.plan")
     assert len(plans) == 2 and {s.parent for s in plans} == {"sweep.run"}
     assert all(s.thread is not None for s in plans)
+    # Four envs sit at the floor (``MIN_BUCKET``): no compaction, every row
+    # of every iteration computed.
     assert profiling.counters() == {"mcts.iterations": iterations,
+                                    "mcts.row_iterations": 4 * iterations,
+                                    "mcts.compactions": 0,
                                     "mcts.env_iterations": env_iterations,
                                     "mcts.short_circuits": short}
     assert 0 < short < 8
