@@ -73,18 +73,18 @@ Phases (any failure exits non-zero and prints no result):
      losses within 1e-4 and the three gradient norms within 1e-3
      (relative) of the CPU's.
   6. the planner path at full width, its search replaying one captured
-     iteration per iteration (``make_jit_planner``, the bucketed planner;
-     phases 8, 9, 13 and 14 plan so too). (a) Planner mechanics on a
-     deterministic mock of the model: the same roots through the plain and
-     the bucketed planner on the CPU and on the card, graphed and op by
-     op, every result field and the tree bit-equal (index ops,
-     scatter-add, ties, compaction).
+     iteration per iteration (``make_jit_planner``; phases 8, 9, 13 and 14
+     plan so too). (a) Planner mechanics on a deterministic mock of the
+     model: the same roots through the planner on the CPU and on the card,
+     graphed and op by op, every result field, the tree and the
+     compaction schedule bit-equal (index ops, scatter-add, ties,
+     compaction).
      (b) The sweep CLI's ``main`` with ``--method mcts`` at 256 envs and the
      CLI's defaults (50 repeats, simulation depth 3, max_depth 16), depth
      cut to 3 macro steps: unfused, then ``--mcts_fused``. (c) The behaviour
      ladder's best configuration, ``--mcts_bucketed --plan_queue --mcts_c
      2``, 512 envs, 6 macro steps. (d) One plan at the reference budget (300
-     repeats), 256 envs, fused: plain and bucketed. (e) One search on the
+     repeats), 256 envs, fused. (e) One search on the
      real agent, B = 8, 4 repeats, injected noise, TF32 off, card against
      CPU. Every plan is checked (scores finite, actions in range, lengths
      <= max_depth, repeats_done <= budget), and so is that it went through
@@ -151,8 +151,8 @@ Phases (any failure exits non-zero and prints no result):
      ``--ladder`` adds ``ai`` at 4096 envs (TF32 off and on),
      ``mcts_c2+queue`` at 256 envs and ``mcts_c2_bucketed+queue`` at 512.
      (d) One plan at the reference budget (300 repeats, fused, float32) at
-     256 envs, plain and bucketed: ``repeats_done`` beside the JAX
-     package's, at least one compaction; then ``--mcts_bucketed
+     256 envs: ``repeats_done`` beside the JAX package's, at least one
+     compaction; then ``--mcts_bucketed
      --plan_queue --mcts_c 2`` (300 repeats, fused, bf16) at 512 envs, 6
      macro steps (depth cut from 200), every plan checked. (e) The
      trainer ``--resume`` from a copy of the store with the run's
@@ -196,12 +196,12 @@ Phases (any failure exits non-zero and prints no result):
      The G and training keys of the bench, eager and graphed in turns.
      (f) The planner on the committed flagship, graphed and op by op from
      one seed: one plan at the reference budget (300 repeats, fused) at
-     256 envs, plain then bucketed, at 32 (the bucket floor) and at 1; one
+     256 envs, at 32 and at 1; one
      at the CLI's defaults (50 repeats, max_depth 16) unfused at expand_k
      4; the demo's ``mcts`` at batch 1 (``--headless 100`` at 300 repeats,
      then 10 host ticks that collect the paths); one distillation collect
      (2 decisions). With cuDNN's deterministic algorithms every result
-     field (the paths too), the bucket traces, the demo's score trace, the
+     field (the paths too), the compaction schedules, the demo's score trace, the
      collect's records and K1's launches equal; with PyTorch's defaults
      each plan timed in turns: ms per iteration, plans/s, graphs captured,
      peak memory; the demo's frames/s; what the graph's max_depth walks
@@ -236,6 +236,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1161,24 +1162,24 @@ RESULT_FIELDS = ("actions", "lengths", "repeats_done", "states_explored", "depth
 TREE_FIELDS = ("s", "W", "N", "Qpi", "children", "done", "repeats_done", "states_explored",
                "depth_capped")
 
-# name: (MCTSParams fields, envs, check_every, min_bucket, ties)
+# name: (MCTSParams fields, envs, ties)
 MECHANICS_CASES = {
-    "compaction": (dict(repeats=24, threshold=0.3, max_depth=16), 64, 2, 4, False),
+    "compaction": (dict(repeats=24, threshold=0.3, max_depth=16), 64, False),
     "prior": (dict(repeats=24, threshold=0.28, max_depth=16,
-                   using_prior_for_exploration=True), 64, 2, 4, False),
-    "depth_cap": (dict(repeats=14, threshold=1.1, C=0.01, max_depth=3), 16, 4, 4, False),
-    "expand_k2": (dict(repeats=24, threshold=0.2, max_depth=16, expand_k=2), 64, 2, 4, False),
-    "ties": (dict(repeats=8, threshold=10.0, max_depth=16), 8, 2, 4, True),
+                   using_prior_for_exploration=True), 64, False),
+    "depth_cap": (dict(repeats=14, threshold=1.1, C=0.01, max_depth=3), 16, False),
+    "expand_k2": (dict(repeats=24, threshold=0.2, max_depth=16, expand_k=2), 64, False),
+    "ties": (dict(repeats=8, threshold=10.0, max_depth=16), 8, True),
 }
 
 
 def phase_planner_mechanics(torch, dev) -> None:
-    """The plain and the bucketed planner on the mock model, card (graphed,
-    then op by op) against CPU: every result field, the tree and the
-    bucket traces equal."""
+    """The planner on the mock model, card (graphed, then op by op) against
+    CPU: every result field, the tree and the compaction schedule equal;
+    ``make_jit_planner`` equal to ``active_inference_mcts``."""
     from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 
-    for name, (fields, B, check_every, min_bucket, ties) in MECHANICS_CASES.items():
+    for name, (fields, B, ties) in MECHANICS_CASES.items():
         p = mcts_lib.MCTSParams(**fields)
         roots = torch.randn((B, MockPlannerModel.S_DIM),
                             generator=torch.Generator().manual_seed(3)) * 0.5
@@ -1203,40 +1204,39 @@ def phase_planner_mechanics(torch, dev) -> None:
                 for graphed in ((None,) if d.type == "cpu" else (None, False)):
                     plain = mcts_lib.active_inference_mcts(model, roots.to(d), p, (7,),
                                                            return_tree=True, graphed=graphed)
-                    plan = mcts_lib.make_bucketed_planner(model, p, check_every, min_bucket,
-                                                          graphed=graphed)
-                    bucketed = plan(roots.to(d), (7,))
+                    plan = mcts_lib.make_jit_planner(model, p, graphed=graphed)
+                    planned = plan(roots.to(d), (7,))
                     runs[d.type if graphed is None else "card op by op"] = (
-                        plain, bucketed, list(plan.bucket_trace), list(plan.schedule))
-        cpu_plain, cpu_bucketed, cpu_trace, cpu_schedule = runs["cpu"]
+                        plain, planned, list(plan.schedule))
+        cpu_plain, cpu_planned, cpu_schedule = runs["cpu"]
         for mode in (dev.type, "card op by op"):
-            plain, bucketed, trace, schedule = runs[mode]
+            plain, planned, schedule = runs[mode]
             label = "card graphed" if mode == dev.type else mode
             for f in RESULT_FIELDS:
                 want = getattr(cpu_plain, f)
-                for what, got in ((f"{label} plain", getattr(plain, f)),
-                                  (f"{label} bucketed", getattr(bucketed, f)),
-                                  ("cpu bucketed", getattr(cpu_bucketed, f))):
+                for what, got in ((f"{label} one-shot", getattr(plain, f)),
+                                  (f"{label} planner", getattr(planned, f)),
+                                  ("cpu planner", getattr(cpu_planned, f))):
                     check(torch.equal(got.cpu(), want),
-                          f"planner mechanics {name}: {what} {f} differs from the CPU's plain")
+                          f"planner mechanics {name}: {what} {f} differs from the CPU's one-shot")
             for f in TREE_FIELDS:
                 check(torch.equal(getattr(plain.tree, f).cpu(), getattr(cpu_plain.tree, f)),
                       f"planner mechanics {name}: the {label} tree.{f} differs from the CPU's")
-            check(trace == cpu_trace and schedule == cpu_schedule,
-                  f"planner mechanics {name}: bucket trace {trace} at {schedule} {label}, "
-                  f"{cpu_trace} at {cpu_schedule} on the CPU")
-        plain, bucketed, trace, schedule = runs[dev.type]
+            check(schedule == cpu_schedule,
+                  f"planner mechanics {name}: compactions {schedule} {label}, {cpu_schedule} "
+                  f"on the CPU")
+        plain, _, schedule = runs[dev.type]
         if name in ("compaction", "prior", "expand_k2"):
-            check(len(trace) > 1, f"planner mechanics {name}: no compaction fired ({trace})")
+            check(len(schedule) > 0, f"planner mechanics {name}: no compaction fired")
         if name == "depth_cap":
             check(int(plain.depth_capped.sum()) > 0, "planner mechanics: no walk hit the cap")
         reps = cpu_plain.repeats_done
         print(f"[planner mechanics] {name}: {B} envs, card (graphed and op by op) == CPU and "
-              f"bucketed == plain in "
+              f"make_jit_planner == active_inference_mcts in "
               f"{len(RESULT_FIELDS)} result fields and {len(TREE_FIELDS)} tree fields, bit for "
               f"bit; repeats_done {int(reps.min())}-{int(reps.max())}, depth_capped "
-              f"{int(cpu_plain.depth_capped.sum())}, buckets {trace} at iterations {schedule}",
-              flush=True)
+              f"{int(cpu_plain.depth_capped.sum())}, compactions (iteration, bucket) "
+              f"{schedule}", flush=True)
 
 
 def check_plan(torch, tag: str, res, p) -> None:
@@ -1256,10 +1256,18 @@ def check_plan(torch, tag: str, res, p) -> None:
     check(bool((res.root_N.sum(dim=-1) >= 4).all()), f"{tag}: a root that was not expanded")
 
 
+def iterations(n: int):
+    """``_run_search``'s ``until`` for ``n`` iterations: it is asked before
+    every iteration but the first."""
+    asked = itertools.count(1)
+    return lambda active: next(asked) >= n
+
+
 @contextlib.contextmanager
 def recorded_plans(torch, log: list, require_graphs: bool = True):
-    """While the block runs, every plan of the port's two planners is
-    checked and appended to ``log`` as (envs, seconds, result, buckets);
+    """While the block runs, every plan of the port's planner is checked
+    and appended to ``log`` as (envs, seconds, result, buckets: the batch,
+    then each compaction's bucket, None for a one-shot plan);
     the seconds are host time around the plan, synchronized on both sides.
     Yields a Counter of the planners' graph ``captures`` and ``replays``
     in the block. With ``require_graphs`` every plan on the card must have
@@ -1290,7 +1298,6 @@ def recorded_plans(torch, log: list, require_graphs: bool = True):
 
     plain = mcts_lib.active_inference_mcts
     make_jit = mcts_lib.make_jit_planner
-    make_bucketed = mcts_lib.make_bucketed_planner
 
     def plain_recorded(agent, frames, p, *a, **kw):
         check(not require_graphs, "a path planned through the one-shot active_inference_mcts "
@@ -1306,27 +1313,14 @@ def recorded_plans(torch, log: list, require_graphs: bool = True):
         def __call__(self, frames, seed_path=None, draws=None):
             res, dt = timed(lambda: self._plan(frames, seed_path, draws), self._p, frames,
                             self._plan.graphs)
-            log.append((frames.shape[0], dt, res, None))
+            log.append((frames.shape[0], dt, res,
+                        [frames.shape[0]] + [size for _, size in self._plan.schedule]))
             return res
 
-        def __getattr__(self, name):  # graphs
+        def __getattr__(self, name):  # graphs, schedule
             return getattr(self._plan, name)
 
-    class BucketedRecorded:
-        def __init__(self, agent, p, *a, **kw):
-            self._plan, self._p = make_bucketed(agent, p, *a, **kw), p
-
-        def __call__(self, frames, seed_path):
-            res, dt = timed(lambda: self._plan(frames, seed_path), self._p, frames,
-                            self._plan.graphs)
-            log.append((frames.shape[0], dt, res, list(self._plan.bucket_trace)))
-            return res
-
-        def __getattr__(self, name):  # bucket_trace, schedule
-            return getattr(self._plan, name)
-
-    with patched(mcts_lib, active_inference_mcts=plain_recorded, make_jit_planner=JitRecorded,
-                 make_bucketed_planner=BucketedRecorded):
+    with patched(mcts_lib, active_inference_mcts=plain_recorded, make_jit_planner=JitRecorded):
         yield counts
     if require_graphs and log:
         check(counts["replays"] > 0, f"{len(log)} plans replayed no graph ({dict(counts)})")
@@ -1469,35 +1463,30 @@ def planner_inputs(torch, dev, envs: int):
 
 
 def phase_reference_budget(torch, dev, smi: str) -> None:
-    """One plan at the reference's budget, fused: plain and bucketed.
-    Printed, not asserted beyond the per-plan checks."""
+    """One plan at the reference's budget, fused. Printed, not asserted
+    beyond the per-plan checks."""
     from deep_active_inference_mc_torch.plan import mcts as mcts_lib
 
     agent, frames = planner_inputs(torch, dev, MCTS_ENVS)
     p = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
                             fused_eval=True)
-    bucketed = mcts_lib.make_bucketed_planner(agent, p)  # the CLI's cadence: 16, 32
-    plain = mcts_lib.make_jit_planner(agent, p)
-    planners = {"plain": lambda: plain(frames, (0,)), "bucketed": lambda: bucketed(frames, (0,))}
-    for tag, plan in planners.items():
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = plan()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        check_plan(torch, f"reference budget, {tag}", res, p)
-        reps = res.repeats_done.double()
-        trace = f", buckets {bucketed.bucket_trace} at {bucketed.schedule}" if tag == "bucketed" \
-            else ""
-        graphs = (bucketed if tag == "bucketed" else plain).graphs
-        print(f"[mcts] reference budget ({REF_BUDGET} repeats, fused, float32), {tag}: "
-              f"{MCTS_ENVS} envs, one plan in {dt:.4f}s, plans/s {MCTS_ENVS / dt:.2f}, "
-              f"{dt / min(int(reps.max()) + 1, REF_BUDGET) * 1e3:.3f} ms per iteration; "
-              f"repeats_done mean {reps.mean():.2f} max {int(reps.max())}, depth_capped total "
-              f"{int(res.depth_capped.sum())}, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB{trace}, graphs captured "
-              f"{graphs.captures} (capture included) [{smi}]", flush=True)
+    plan = mcts_lib.make_jit_planner(agent, p)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = plan(frames, (0,))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_plan(torch, "reference budget", res, p)
+    reps = res.repeats_done.double()
+    print(f"[mcts] reference budget ({REF_BUDGET} repeats, fused, float32): "
+          f"{MCTS_ENVS} envs, one plan in {dt:.4f}s, plans/s {MCTS_ENVS / dt:.2f}, "
+          f"{dt / min(int(reps.max()) + 1, REF_BUDGET) * 1e3:.3f} ms per iteration; "
+          f"repeats_done mean {reps.mean():.2f} max {int(reps.max())}, depth_capped total "
+          f"{int(res.depth_capped.sum())}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, compactions (iteration, "
+          f"bucket) {plan.schedule}, graphs captured {plan.graphs.captures} (capture "
+          f"included) [{smi}]", flush=True)
 
 
 def phase_search_card_vs_cpu(torch, dev) -> None:
@@ -1534,7 +1523,7 @@ def phase_search_card_vs_cpu(torch, dev) -> None:
                     carry.tree.W[bidx, at], carry.tree.N[bidx, at], carry.tree.Qpi[bidx, at],
                     p.C, False).topk(2).values
                 clear &= (nodes[:, d] < 0) | (top[:, 0] - top[:, 1] > PROB_MARGIN)
-            mcts_lib._run_search(agent_cpu, carry, p, i + 1, draws=draws.iterations)
+            mcts_lib._run_search(agent_cpu, carry, p, iterations(1), draws=draws.iterations)
         want = mcts_lib._finalize_search(agent_cpu, carry, p)
     want_tree = carry.tree
 
@@ -1582,10 +1571,10 @@ def profile_planner(torch, dev, trace_dir) -> None:
                                 max_depth=MCTS_MAX_DEPTH, fused_eval=fused)
         with torch.inference_mode():
             carry = mcts_lib._init_search(agent, frames, p, (0,))
-            mcts_lib._run_search(agent, carry, p, 10)
+            mcts_lib._run_search(agent, carry, p, iterations(10))
 
             def run():
-                mcts_lib._run_search(agent, carry, p, carry.i + 2)
+                mcts_lib._run_search(agent, carry, p, iterations(2))
 
             profile_report(torch, f"planner, {tag}, {MCTS_ENVS} envs x 2 iterations "
                            f"(from iteration 12)", run,
@@ -2467,29 +2456,22 @@ def phase_flagship(torch, dev, smi: str, out_root: str, figures: dict, ladder: s
     runs["flagship_plan_frames"] = dict(LAUNCHES)
     p = mcts_lib.MCTSParams(repeats=REF_BUDGET, simulation_depth=3, max_depth=MCTS_MAX_DEPTH,
                             fused_eval=True)
-    bucketed = mcts_lib.make_bucketed_planner(agent, p)
-    plain = mcts_lib.make_jit_planner(agent, p)
-    for tag, plan in (("plain", lambda: plain(frames, (0,))),
-                      ("bucketed", lambda: bucketed(frames, (0,)))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = plan()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        check_plan(torch, f"flagship plan, {tag}", res, p)
-        reps = res.repeats_done.double()
-        trace = ""
-        if tag == "bucketed":
-            check(len(bucketed.bucket_trace) > 1, f"flagship plan: no compaction under the "
-                  f"trained prior (buckets {bucketed.bucket_trace})")
-            trace = f", buckets {bucketed.bucket_trace} at iterations {bucketed.schedule}"
-        print(f"[flagship] plan at the reference budget ({REF_BUDGET} repeats, fused, float32), "
-              f"{tag}: {FLAGSHIP_PLAN_ENVS} envs in {dt:.4f}s, plans/s "
-              f"{FLAGSHIP_PLAN_ENVS / dt:.2f}; repeats_done mean {reps.mean():.2f} (JAX package "
-              f"{JAX_TRAINED_EXPANSIONS}/{REF_BUDGET}, BENCH_r05.json) max {int(reps.max())}, "
-              f"depth_capped {int(res.depth_capped.sum())}{trace} [{smi}]", flush=True)
-        seen[f"plan_{tag}"] = (float(reps.mean()), int(res.depth_capped.sum()),
-                               list(bucketed.bucket_trace) if tag == "bucketed" else None)
+    plan = mcts_lib.make_jit_planner(agent, p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = plan(frames, (0,))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_plan(torch, "flagship plan", res, p)
+    reps = res.repeats_done.double()
+    check(len(plan.schedule) > 0, "flagship plan: no compaction under the trained prior")
+    print(f"[flagship] plan at the reference budget ({REF_BUDGET} repeats, fused, float32): "
+          f"{FLAGSHIP_PLAN_ENVS} envs in {dt:.4f}s, plans/s "
+          f"{FLAGSHIP_PLAN_ENVS / dt:.2f}; repeats_done mean {reps.mean():.2f} (JAX package "
+          f"{JAX_TRAINED_EXPANSIONS}/{REF_BUDGET}, BENCH_r05.json) max {int(reps.max())}, "
+          f"depth_capped {int(res.depth_capped.sum())}, compactions (iteration, bucket) "
+          f"{plan.schedule} [{smi}]", flush=True)
+    seen["plan"] = (float(reps.mean()), int(res.depth_capped.sum()), list(plan.schedule))
 
     # (d) the ladder's best configuration on the trained prior, depth cut.
     log = []
@@ -2644,22 +2626,19 @@ def phase_distilled(torch, dev, smi: str, out_root: str, ladder: str, flagship: 
                             fused_eval=True)
     log = []
     with recorded_plans(torch, log, require_graphs=True) as graph_counts:
-        plain = mcts_lib.make_jit_planner(agent, p)
-        bucketed = mcts_lib.make_bucketed_planner(agent, p)
-        plain(frames, (0,))
-        bucketed(frames, (0,))
-    check(len(log) == 2, f"distilled plan: {len(log)} plans recorded, want 2")
-    for tag, (envs, dt, res, trace) in zip(("plain", "bucketed"), log):
-        reps = res.repeats_done.double()
-        f_reps, f_capped, f_trace = flagship[f"plan_{tag}"]
-        print(f"[distilled] plan at the reference budget ({REF_BUDGET} repeats, fused, float32), "
-              f"{tag}: {envs} envs in {dt:.4f}s, plans/s {envs / dt:.2f}; repeats_done mean "
-              f"{reps.mean():.2f} max {int(reps.max())}, depth_capped "
-              f"{int(res.depth_capped.sum())}"
-              + (f", buckets {trace} at iterations {bucketed.schedule}" if trace else "")
-              + f" (the flagship, phase 13: repeats_done mean {f_reps:.2f}, depth_capped "
-              f"{f_capped}" + (f", buckets {f_trace}" if f_trace else "") + "); planner graphs "
-              f"{dict(graph_counts)} [{smi}]", flush=True)
+        plan = mcts_lib.make_jit_planner(agent, p)
+        plan(frames, (0,))
+    check(len(log) == 1, f"distilled plan: {len(log)} plans recorded, want 1")
+    envs, dt, res, _ = log[0]
+    reps = res.repeats_done.double()
+    f_reps, f_capped, f_schedule = flagship["plan"]
+    print(f"[distilled] plan at the reference budget ({REF_BUDGET} repeats, fused, float32): "
+          f"{envs} envs in {dt:.4f}s, plans/s {envs / dt:.2f}; repeats_done mean "
+          f"{reps.mean():.2f} max {int(reps.max())}, depth_capped "
+          f"{int(res.depth_capped.sum())}, compactions (iteration, bucket) {plan.schedule} "
+          f"(the flagship, phase 13: repeats_done mean {f_reps:.2f}, depth_capped "
+          f"{f_capped}, compactions {f_schedule}); planner graphs {dict(graph_counts)} "
+          f"[{smi}]", flush=True)
 
     # (e) the phase-3 workflow that made the flagship: the trainer resumes
     # the distilled agent with the flagship run's config.json flags.
@@ -2770,11 +2749,9 @@ def phase_bench(torch, dev, smi: str) -> dict:
                                                   dict(repeats=REF_BUDGET, fused=True, reps=R),
                                                   1),
         "mcts_plans_per_sec_ref_budget_trained_bucketed": (
-            bench.bench_mcts_bucketed, (trained, lut), dict(repeats=REF_BUDGET, reps=R, B=1024),
-            1),
+            plans, (trained, lut), dict(repeats=REF_BUDGET, fused=True, reps=R, batch=1024), 1),
         "mcts_plans_per_sec_ref_budget_trained_bucketed_b256": (
-            bench.bench_mcts_bucketed, (trained, lut), dict(repeats=REF_BUDGET, reps=R, B=256),
-            1),
+            plans, (trained, lut), dict(repeats=REF_BUDGET, fused=True, reps=R, batch=256), 1),
         "train_env_steps_per_sec": (bench.bench_train_round, (lut,), dict(batch=512, reps=R),
                                     2 * BENCH_TRAIN_ROUNDS * (1 + R)),
         "train_env_steps_per_sec_bf16": (bench.bench_train_round, (lut,),
@@ -3107,7 +3084,7 @@ def plan_iterations(res, p) -> int:
 def graphs_planner_turns(torch, smi: str, tag: str, make, frames, p) -> dict:
     """One plan from one seed, op by op and graphed (``make(graphed)``):
     with cuDNN's deterministic algorithms every result field and the
-    bucket traces bit-equal; then with PyTorch's defaults in turns, graphed
+    compaction schedule equal; then with PyTorch's defaults in turns, graphed
     (the capture), op by op, graphed (replays only), each timed. Returns
     the ms per iteration by mode."""
     B = frames.shape[0]
@@ -3116,12 +3093,9 @@ def graphs_planner_turns(torch, smi: str, tag: str, make, frames, p) -> dict:
         want, _ = timed_plan(torch, eager, frames, (0,))
         got, _ = timed_plan(torch, graphed, frames, (0,))
     same_results(torch, f"planner {tag}", got, want)
-    traces = ""
-    if hasattr(eager, "bucket_trace"):
-        check(eager.bucket_trace == graphed.bucket_trace and eager.schedule == graphed.schedule,
-              f"planner {tag}: buckets {graphed.bucket_trace} at {graphed.schedule} graphed, "
-              f"{eager.bucket_trace} at {eager.schedule} op by op")
-        traces = f", buckets {graphed.bucket_trace} at iterations {graphed.schedule}"
+    check(eager.schedule == graphed.schedule,
+          f"planner {tag}: compactions {graphed.schedule} graphed, {eager.schedule} op by op")
+    traces = f", compactions (iteration, bucket) {graphed.schedule}"
     iters = plan_iterations(want, p)
     times, peaks = {"graphed": [], "eager": []}, {}
     for mode, plan in (("graphed", graphed), ("eager", eager), ("graphed", graphed)):
@@ -3154,7 +3128,7 @@ def graphs_walk_cost(torch, dev, smi: str, agent, frames, p) -> None:
     extra = sum(p.max_depth - (i + 1) for i in range(p.max_depth - 1))
     with torch.inference_mode():
         carry = mcts_lib._init_search(agent, frames, p, (0,))
-        mcts_lib._run_search(agent, carry, p, 20)
+        mcts_lib._run_search(agent, carry, p, iterations(20))
         for B in (frames.shape[0], 32, 1):
             tree = dataclasses.replace(carry.tree, **{
                 f.name: getattr(carry.tree, f.name)[:B].clone()
@@ -3181,7 +3155,7 @@ def graphs_walk_cost(torch, dev, smi: str, agent, frames, p) -> None:
 def graphs_planner(torch, dev, smi: str) -> dict:
     """(f) The planner, graphed against op by op from one seed, on the
     committed flagship: one plan at the reference budget (300 repeats,
-    fused) at 256 envs, plain and bucketed, at 32 and at 1 env; one at the
+    fused) at 256 envs (it compacts), at 32 and at 1 env; one at the
     CLI's defaults (50 repeats, max_depth 16) unfused at expand_k 4; the
     demo's ``mcts`` at batch 1 (one headless round, then 10 host ticks,
     whose plans collect the paths); one distillation collect (2 decisions
@@ -3208,9 +3182,7 @@ def graphs_planner(torch, dev, smi: str) -> dict:
     plain = lambda p: lambda graphed: mcts_lib.make_jit_planner(agent, p, graphed=graphed)
     cases = (
         ("plain, reference budget, fused", plain(ref), frames, ref),
-        ("bucketed, reference budget, fused", lambda graphed: mcts_lib.make_bucketed_planner(
-            agent, ref, graphed=graphed), frames, ref),
-        ("plain, reference budget, fused, the bucket floor", plain(ref), frames[:32], ref),
+        ("plain, reference budget, fused, 32 envs", plain(ref), frames[:32], ref),
         ("plain, reference budget, fused, the demo's batch", plain(ref), frames[:1], ref),
         ("plain, the CLI's defaults, unfused, expand_k 4", plain(cli_k4), frames, cli_k4),
     )

@@ -23,11 +23,11 @@ float32). ``--mesh`` shards the envs over one rank per visible card
 (``--mesh N``: N ranks; ranks share a card over gloo when there are fewer
 cards, and run on the CPU with ``--device cpu``); the ``ai``, ``t1``,
 ``t12``, ``habit``, ``random`` and ``expert`` scores equal the single-rank
-sweep's at the same seed (``train/sweep.py``). The bucketed planner runs on
+sweep's at the same seed (``train/sweep.py``). ``--mcts_bucketed`` runs on
 one rank. On a card without a mesh, every method but ``mcts`` replays one
-captured CUDA graph per macro step (``utils/graphs.py``), and ``mcts`` (plain
-or bucketed) one per search iteration of its planner; ``main(argv,
-graphed=False)`` runs the same steps op by op, for comparison.
+captured CUDA graph per macro step (``utils/graphs.py``), and ``mcts`` (with
+or without ``--mcts_bucketed``) one per search iteration of its planner;
+``main(argv, graphed=False)`` runs the same steps op by op, for comparison.
 """
 
 from __future__ import annotations
@@ -111,15 +111,12 @@ def main(argv=None, graphed: Optional[bool] = None) -> dict:
                         "estimators, one pass per network per iteration; "
                         "plan/mcts.py:_fused_expand_sim).")
     parser.add_argument("--mcts_bucketed", action="store_true",
-                        help="Host-driven batch-compaction planner: decided envs "
-                        "retire at iteration checkpoints, stragglers re-pack "
-                        "into smaller buckets "
-                        "(plan/mcts.py:make_bucketed_planner). mcts only.")
-    parser.add_argument("--mcts_check_every", type=int, default=16,
-                        help="Bucketed planner: iterations between "
-                        "retire/compaction checks.")
-    parser.add_argument("--mcts_min_bucket", type=int, default=32,
-                        help="Bucketed planner: smallest compaction bucket.")
+                        help="Plan only for the envs that need a plan (with "
+                        "--plan_queue: those whose queue ran out), padded to a "
+                        "bucket, in a host loop of macro steps "
+                        "(train/sweep.py:run_sweep_bucketed); the planner "
+                        "compacts inside its search either way. mcts only, "
+                        "one rank.")
     parser.add_argument("--plan_queue", action="store_true",
                         help="Reference full-plan execution protocol: enqueue "
                         "the whole MCTS path / the EFE action x steps, execute "
@@ -181,7 +178,6 @@ def _sweep(mesh, args: argparse.Namespace, graphed: Optional[bool] = None) -> di
         out = sweep_lib.run_sweep_bucketed(
             agent, cfg, lut, seed=args.seed, n_envs=args.envs,
             n_macro_steps=args.macro, jumps=args.jumps, mcts_params=mcts_params,
-            check_every=args.mcts_check_every, min_bucket=args.mcts_min_bucket,
             plan_queue=args.plan_queue, queue_cap=args.queue_cap, graphed=graphed,
         )
     else:

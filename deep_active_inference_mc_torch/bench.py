@@ -11,7 +11,9 @@ one card, key for key with the JAX package's ``bench.py``.
   3. MCTS plans/s: full searches with depth-3 habit simulations, 256 envs
      planning at once (unfused, fused, fused bf16, the reference budget of
      300 repeats with and without ``expand_k`` 4, the trained habit prior
-     on the plain and the bucketed planner);
+     at 256 envs, and at 1024 and 256 under the keys that ``bench.py``
+     names after its bucketed planner: here the one planner, which
+     compacts its batch inside its search);
   4. env steps/s inside training: the act -> plan -> step -> train round.
 
 Prints one summary line on stderr, one line per key (its time and peak
@@ -25,8 +27,8 @@ around work that ends in ``torch.cuda.synchronize()``. The loops that
 ``bench.py`` runs as one compiled ``lax.scan`` (the env steps, G, the
 training epoch) replay one captured CUDA graph per step on a card
 (``utils/graphs.py``), each step's noise drawn eagerly in the eager loop's
-order; the planners (``make_jit_planner`` as ``bench.py``'s, and the
-bucketed one) replay one captured search iteration per iteration. PyTorch's TF32 and cuDNN settings are
+order; the planner (``make_jit_planner`` as ``bench.py``'s) replays one
+captured search iteration per iteration. PyTorch's TF32 and cuDNN settings are
 left at their defaults, as the other entry points leave them, and printed.
 """
 
@@ -206,33 +208,6 @@ def bench_mcts_plans(agent: ActiveInferenceAgent, lut: torch.Tensor, repeats: in
     return batch * reps / dt, capped / max(done, 1.0), done / (batch * reps)
 
 
-@torch.inference_mode()
-def bench_mcts_bucketed(agent: ActiveInferenceAgent, lut: torch.Tensor, repeats: int = 300,
-                        reps: int = 3, check_every: int = 16, min_bucket: int = 32,
-                        B: int = 1024, graphed: Optional[bool] = None) -> float:
-    """Reference-budget MCTS on the batch-compaction planner
-    (``plan.mcts.make_bucketed_planner``, ``graphed`` as its): decided envs
-    retire at iteration checkpoints and the stragglers re-pack into smaller
-    buckets, so iteration cost tracks the active env count. B = 1024 is
-    the deployed fleet width."""
-    o = _frames(lut, B)
-    p = mcts_lib.MCTSParams(repeats=repeats, simulation_depth=3, max_depth=16,
-                            fused_eval=True)
-    planner = mcts_lib.make_bucketed_planner(agent, p, check_every=check_every,
-                                             min_bucket=min_bucket, graphed=graphed)
-    # Two warm-ups: compaction points differ per seed, so the second pass
-    # meets bucket sizes the first one missed.
-    for k in (1, 101):
-        planner(o, (k,))
-    _sync(lut.device)
-    t0 = time.perf_counter()
-    for i in range(reps):
-        planner(o, (2 + i,))
-    _sync(lut.device)
-    dt = time.perf_counter() - t0
-    return B * reps / dt
-
-
 def bench_train_round(lut: torch.Tensor, batch: int = 512, bf16: bool = False,
                       rounds: int = 16, reps: int = 3, graphed: Optional[bool] = None) -> float:
     """The act -> plan -> step -> train round (data generation and the
@@ -338,12 +313,12 @@ def main(argv=None) -> dict:
         mcts_trained, _, avg_reps_trained = timed(
             "mcts_plans_per_sec_ref_budget_trained", bench_mcts_plans, trained, lut,
             repeats=300, fused=True, reps=3)
-        mcts_trained_bucketed = timed(
-            "mcts_plans_per_sec_ref_budget_trained_bucketed", bench_mcts_bucketed, trained,
-            lut, repeats=300, reps=3, B=1024)
-        mcts_trained_bucketed_b256 = timed(
-            "mcts_plans_per_sec_ref_budget_trained_bucketed_b256", bench_mcts_bucketed,
-            trained, lut, repeats=300, reps=3, B=256)
+        mcts_trained_bucketed, _, _ = timed(
+            "mcts_plans_per_sec_ref_budget_trained_bucketed", bench_mcts_plans, trained, lut,
+            repeats=300, fused=True, reps=3, batch=1024)
+        mcts_trained_bucketed_b256, _, _ = timed(
+            "mcts_plans_per_sec_ref_budget_trained_bucketed_b256", bench_mcts_plans, trained,
+            lut, repeats=300, fused=True, reps=3, batch=256)
     train_sps = timed("train_env_steps_per_sec", bench_train_round, lut, batch=512)
     train_bf16 = timed("train_env_steps_per_sec_bf16", bench_train_round, lut, batch=512,
                        bf16=True)
@@ -360,8 +335,8 @@ def main(argv=None) -> dict:
         f"{mcts_ref_k4:.3e} (cap binds {cap_frac_k4:.1%})"
         + (
             f" | trained-prior {mcts_trained:.3e} "
-            f"(avg {avg_reps_trained:.0f}/300 expansions) | +bucketed "
-            f"{mcts_trained_bucketed:.3e} (B=1024; B=256 "
+            f"(avg {avg_reps_trained:.0f}/300 expansions) | B=1024 "
+            f"{mcts_trained_bucketed:.3e} (B=256 "
             f"{mcts_trained_bucketed_b256:.3e})"
             if mcts_trained is not None
             else ""

@@ -59,7 +59,7 @@ steps (the steps beyond a path's end change nothing). Each iteration's
 noise is drawn ahead by ``draw_iteration`` from the iteration's own
 generator, in the order the eager iteration draws it, so a graphed search
 gives the eager search's numbers; a bucket's graph gathers its envs' rows
-of the whole batch's noise. The planners keep their graphs in one memory pool;
+of the whole batch's noise. A planner keeps its graphs in one memory pool;
 initialization and the final walk run eagerly. ``graphed=False`` runs the
 iterations op by op, each drawing as it goes, its walks as long as the
 tree is deep.
@@ -84,7 +84,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 from deep_active_inference_mc_torch.infer import efe
@@ -450,13 +449,13 @@ def _action_selection(tree: _Tree, max_depth: int, pi_dim: int,
 class SearchCarry:
     """Resumable search state: everything live between planner iterations.
 
-    ``_init_search`` -> ``_run_search`` (any number of times) ->
-    ``_finalize_search`` lets a host-side loop pause the search at
-    iteration boundaries, retire decided environments and re-pack the
-    stragglers into a smaller batch (``make_bucketed_planner``). Every
-    tensor has leading batch dim B; ``i`` and ``seed_path`` are host values
-    shared across the batch, so a compacted search goes on drawing
-    iteration i's noise from the same seed."""
+    ``_init_search`` -> ``_run_search`` (once per bucket) ->
+    ``_finalize_search`` lets ``_run_compacted`` pause the search at an
+    iteration boundary, gather the envs still searching into a smaller
+    batch (``_gather_carry``) and write the bucket's rows back
+    (``_scatter_carry``). Every tensor has leading batch dim B; ``i`` and
+    ``seed_path`` are host values shared across the batch, so a compacted
+    search goes on drawing iteration i's noise from the same seed."""
 
     i: int  # sequential iterations enqueued
     tree: _Tree
@@ -816,10 +815,6 @@ def _active(state) -> torch.Tensor:
     return (~state[1].done).sum()
 
 
-def _none_active(active: torch.Tensor) -> bool:
-    return int(active) == 0
-
-
 def _iteration_inputs(agent, carry: SearchCarry, p: MCTSParams,
                       draws: Optional[Sequence[IterationDraws]], graphed: bool,
                       rows: Optional[_BucketRows]):
@@ -854,26 +849,25 @@ def _loop_options(agent, p: MCTSParams, events) -> dict:
                 key=(p, agent.dtype, events is not None))
 
 
-def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, i_end: int,
+def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, until,
                 draws: Optional[Sequence[IterationDraws]] = None,
                 graphs: Optional[graphs_lib.Graphs] = None, events=None,
-                until=_none_active, rows: Optional[_BucketRows] = None,
-                first=None) -> SearchCarry:
-    """Advance the search until iteration ``i_end`` (clamped to the repeat
-    budget) or until ``until`` of the count of envs still searching, read
-    one iteration late (module docstring), says stop: by default once every
-    env has decided, so at most one no-op iteration runs after the last
-    decision. ``graphs``: replay one captured iteration per iteration, each
-    fed ``draw_iteration``'s noise (or the injected ``draws[i]``, whole); the
-    tree then lives in the graph's buffers, which ``carry`` points at. None:
-    op by op, the tree updated in place. ``events``: ``_search_step``'s.
-    ``rows``: ``carry`` is a bucket of a batch, these its rows (``_search``);
-    ``first``: the first iteration's input, made already. Returns
-    ``carry``."""
+                rows: Optional[_BucketRows] = None, first=None) -> SearchCarry:
+    """Advance the search until the end of the repeat budget or until
+    ``until`` of the count of envs still searching, read one iteration late
+    (module docstring), says stop. ``until`` is asked before every
+    iteration but the first, so a stop once every env has decided runs at
+    most one no-op iteration after the last decision. ``graphs``: replay
+    one captured iteration per iteration, each fed ``draw_iteration``'s
+    noise (or the injected ``draws[i]``, whole); the tree then lives in the
+    graph's buffers, which ``carry`` points at. None: op by op, the tree
+    updated in place. ``events``: ``_search_step``'s. ``rows``: ``carry``
+    is a bucket of a batch, these its rows (``_run_compacted``); ``first``:
+    the first iteration's input, made already. Returns ``carry``."""
     A = carry.tree.W.shape[-1]
     n_iters, _, _ = _budget(p, A)
     start = carry.i
-    n = max(min(int(i_end), n_iters) - start, 0)
+    n = max(n_iters - start, 0)
     inputs = _iteration_inputs(agent, carry, p, draws, graphs is not None, rows)
     xs = (first if i == start and first is not None else inputs(i)
           for i in range(start, start + n))
@@ -890,10 +884,24 @@ def _run_search(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParams, 
     return carry
 
 
-def _bucket(active: int) -> int:
+def bucket_size(n: int) -> int:
     """The smallest power-of-two bucket, at least ``MIN_BUCKET``, that holds
-    ``active`` envs."""
-    return max(MIN_BUCKET, 1 << max(active - 1, 0).bit_length())
+    ``n`` envs: a compacted search's, and the sweep's padding of the envs
+    that need a plan (``train/sweep.py``)."""
+    return max(MIN_BUCKET, 1 << max(n - 1, 0).bit_length())
+
+
+def _gather_carry(carry: SearchCarry, idx: torch.Tensor) -> SearchCarry:
+    """Re-pack per-env search state onto the rows in ``idx`` (compaction),
+    the paths along their env axis. Copies: the result shares no storage
+    with ``carry``."""
+    take = lambda x, dim=0: None if x is None else x.index_select(dim, idx)
+    tree = _Tree(**{f.name: take(getattr(carry.tree, f.name))
+                    for f in dataclasses.fields(_Tree)})
+    return dataclasses.replace(
+        carry, tree=tree, done=tree.done, habit_done=take(carry.habit_done),
+        habit_action=take(carry.habit_action), root_Qpi=take(carry.root_Qpi),
+        paths_buf=take(carry.paths_buf, 1), paths_G_buf=take(carry.paths_G_buf, 1))
 
 
 def _scatter_carry(dst: SearchCarry, src: SearchCarry, env: torch.Tensor) -> None:
@@ -933,8 +941,8 @@ def _run_compacted(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParam
             return False
 
         start, replays = bucket.i, graphs.replays if events else 0
-        _run_search(agent, bucket, p, n_iters, draws, graphs,
-                    events if rows is None else None, until, rows, first)
+        _run_search(agent, bucket, p, until, draws, graphs,
+                    events if rows is None else None, rows, first)
         row_iterations += size * (bucket.i - start)
         carry.i = bucket.i
         if rows is not None:
@@ -943,7 +951,7 @@ def _run_compacted(agent: ActiveInferenceAgent, carry: SearchCarry, p: MCTSParam
             profiling.record_device_events("mcts.device", *events)
         if not read or not read[0] or bucket.i >= n_iters:
             break
-        size = _bucket(read[0])
+        size = bucket_size(read[0])
         order = torch.argsort(carry.tree.done.to(torch.int32), stable=True)  # searching first
         rows = _bucket_rows(order[:size], B, p, A)
         bucket = _gather_carry(carry, rows.env)
@@ -1081,155 +1089,4 @@ def make_jit_planner(agent: ActiveInferenceAgent, p: MCTSParams, collect_paths: 
 
     plan.graphs = graphs
     plan.last, plan.schedule = None, []
-    return plan
-
-
-def _gather_carry(carry: SearchCarry, idx: torch.Tensor) -> SearchCarry:
-    """Re-pack per-env search state onto the rows in ``idx`` (compaction),
-    the paths along their env axis. Copies: the result shares no storage
-    with ``carry``."""
-    take = lambda x, dim=0: None if x is None else x.index_select(dim, idx)
-    tree = _Tree(**{f.name: take(getattr(carry.tree, f.name))
-                    for f in dataclasses.fields(_Tree)})
-    return dataclasses.replace(
-        carry, tree=tree, done=tree.done, habit_done=take(carry.habit_done),
-        habit_action=take(carry.habit_action), root_Qpi=take(carry.root_Qpi),
-        paths_buf=take(carry.paths_buf, 1), paths_G_buf=take(carry.paths_G_buf, 1))
-
-
-_OUT_FIELDS = ("actions", "lengths", "repeats_done", "states_explored", "depth_capped",
-               "root_N", "root_Qpi")
-
-
-def make_bucketed_planner(agent: ActiveInferenceAgent, p: MCTSParams,
-                          check_every: int = 16, min_bucket: int = 32,
-                          graphed: Optional[bool] = None):
-    """Host-driven planner with batch compaction.
-
-    The plain planner runs until the slowest env of the batch decides, and
-    every decided env keeps paying full (masked) G-network compute while it
-    rides along. This planner pauses the search every ``check_every``
-    iterations, retires decided envs (their trees are frozen, so finalizing
-    early is exact) and gathers the stragglers into the smallest
-    power-of-two bucket >= max(active, ``min_bucket``). Iteration cost then
-    follows the active env count.
-
-    Per-env search semantics are ``active_inference_mcts``'s (same tree
-    updates, same per-iteration seeds); only the row layout of the noise
-    differs after a compaction, as with ``fused_eval``. With no compaction
-    (e.g. B == min_bucket) the results equal the plain planner's bit for bit.
-    ``collect_paths``, ``return_tree`` and injected draws are not supported.
-
-    The check cadence adapts within one call and keeps no state across
-    calls: check every ``check_every`` iterations; after 2 checks in a row
-    with no compaction, double the stride; reset it to ``check_every``
-    whenever a compaction fires.
-
-    The loop is pipelined: the next chunk is enqueued before the host
-    waits for the previous chunk's done mask, whose copy was enqueued ahead
-    of that chunk. Retirement therefore runs one chunk stale, which is
-    valid because ``done`` only grows and a done env's tree is frozen; the
-    mask that decides it is the snapshot, not the live ``carry.done``.
-
-    ``graphed`` as ``make_jit_planner``'s: every chunk of the search replays
-    one captured iteration at its bucket size (``plan.graphs``: one graph
-    per bucket size).
-
-    Returns ``plan(frames, seed_path) -> MCTSResult``; after a call
-    ``plan.bucket_trace`` lists its bucket sizes and ``plan.schedule`` the
-    iterations at which it compacted.
-    """
-    n_iters, _, _ = _budget(p, agent.pi_dim)
-    graphs = graphs_lib.Graphs()
-
-    @torch.inference_mode()
-    def plan(frames: torch.Tensor, seed_path: Sequence[int]) -> MCTSResult:
-        B0, A = frames.shape[0], agent.pi_dim
-        dev = frames.device
-        g = graphs if graphs_lib.use_graphs(graphed, frames) else None
-        plan.bucket_trace = [B0]
-        gidx = np.arange(B0)  # bucket row -> original env row (-1 = pad)
-        recorded = []
-        at_floor = B0 <= min_bucket
-        stride = check_every
-        dry = 0  # checks in a row with no compaction at the current stride
-
-        def next_stop(i):
-            # At min_bucket no further compaction is possible: run the rest
-            # of the budget as one chunk (it still stops once all decide).
-            if at_floor:
-                return n_iters
-            return min(i + stride, n_iters)
-
-        stash = []  # (MCTSResult on the device, bucket rows, original env rows)
-        i_host = next_stop(0)
-        carry = _run_search(agent, _init_search(agent, frames, p, seed_path), p, i_host,
-                            graphs=g)
-        # The done mask after each chunk, on its way to the host (chunk c in
-        # slot c % 2): read while the next chunk runs.
-        done_copies = graphs_lib.HostSlots()
-        c = 0
-        done_copies.put(c, carry.done)
-        while True:
-            ran_next = i_host < n_iters
-            i_next = next_stop(i_host) if ran_next else i_host
-            if ran_next:
-                carry = _run_search(agent, carry, p, i_next, graphs=g)
-            done = done_copies.get(c).numpy()  # waits for the previous chunk only
-            if not ran_next or done.all():
-                # Budget exhausted, or everything decided (a chunk enqueued
-                # above was then a no-op).
-                stash.append((_finalize_search(agent, carry, p),
-                              np.arange(done.shape[0]), gidx))
-                break
-            cur_B = done.shape[0]
-            n_active = int((~done).sum())
-            new_B = cur_B
-            while new_B // 2 >= max(min_bucket, n_active):
-                new_B //= 2
-            if new_B == cur_B:
-                dry += 1
-                if dry >= 2:
-                    stride = min(stride * 2, n_iters)
-                    dry = 0
-            else:
-                stride = check_every
-                dry = 0
-                # Retire the envs known done as of the snapshot (frozen
-                # since), reading their results from the tree as it is now.
-                stash.append((_finalize_search(agent, carry, p), np.where(done)[0], gidx))
-                keep = np.where(~done)[0]
-                pad = new_B - keep.shape[0]
-                idx = np.concatenate([keep, np.full(pad, keep[0], np.int64)])
-                carry = _gather_carry(carry, torch.as_tensor(idx, device=dev))
-                if pad:
-                    carry.done[keep.shape[0]:] = True  # the gather's own copy
-                gidx = np.concatenate([gidx[keep], np.full(pad, -1, np.int64)])
-                plan.bucket_trace.append(new_B)
-                recorded.append(i_host)
-                if new_B <= min_bucket:
-                    at_floor = True
-            i_host = i_next
-            c += 1
-            done_copies.put(c, carry.done)
-
-        plan.schedule = recorded  # this call's compaction iterations
-
-        out = {}
-        for res, rows, gmap in stash:
-            dst = gmap[rows]
-            rows, dst = rows[dst >= 0], dst[dst >= 0]
-            if rows.size == 0:
-                continue
-            rows, dst = torch.as_tensor(rows, device=dev), torch.as_tensor(dst, device=dev)
-            for name in _OUT_FIELDS:
-                x = getattr(res, name)
-                if name not in out:
-                    fill = -1 if name == "actions" else 0
-                    out[name] = torch.full((B0,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
-                                           device=dev)
-                out[name][dst] = x[rows]
-        return MCTSResult(**out, all_paths=None, all_paths_G=None, tree=None)
-
-    plan.graphs = graphs
     return plan

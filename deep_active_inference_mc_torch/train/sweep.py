@@ -33,8 +33,8 @@ replayed per macro step, its noise drawn eagerly with ``draw_macro`` (the
 order the eager step draws it), so it scores what the eager chunk scores.
 Under mcts the macro steps run op by op (a graph of one could not hold
 the search's loop of unknown length), and the planner, built once per
-sweep (``plan.mcts.make_jit_planner``; ``make_bucketed_planner`` for
-``run_sweep_bucketed``), replays its own graph of one search iteration.
+sweep (``plan.mcts.make_jit_planner``, ``run_sweep_bucketed``'s too),
+replays its own graph of one search iteration.
 
 ``mesh`` (``parallel/mesh.py``, data ranks only) shards the envs over the
 ranks, the counterpart of ``run_sweep(..., mesh=)``: every rank draws each
@@ -502,28 +502,25 @@ def run_sweep_bucketed(
     n_macro_steps: int = 100,
     jumps: int = 5,
     mcts_params: Optional[mcts_lib.MCTSParams] = None,
-    check_every: int = 16,
-    min_bucket: int = 32,
     plan_queue: bool = False,
     queue_cap: int = 0,
     graphed: Optional[bool] = None,
 ) -> Dict:
-    """MCTS sweep on the bucketed (batch-compaction) planner.
+    """MCTS sweep that plans only for the envs that need a plan.
 
-    The planner is host-driven (``mcts_lib.make_bucketed_planner``), so the
-    macro loop runs at host level, with a host sync per macro step. Output
-    keys match ``run_sweep``, plus ``"bucket_traces"``: each plan's bucket
-    sizes. ``graphed`` as the planner's: each chunk of its search replays a
-    captured iteration on a card unless False.
+    The macro loop runs at host level, with a host sync per macro step,
+    around one ``mcts_lib.make_jit_planner`` (``graphed`` as its), which
+    compacts its batch inside its search. Output keys match ``run_sweep``,
+    plus ``"bucket_traces"``: each plan's batch, then the size of each
+    bucket it compacted into (``plan.schedule``).
 
     ``plan_queue`` runs the full-plan protocol with a host-side queue, and
     plans (and renders) only for the envs whose queue ran out, gathered and
-    padded to a power-of-two bucket: commitment here cuts planning time by
-    the mean plan length."""
+    padded to ``mcts_lib.bucket_size`` of their count, at most ``n_envs``:
+    commitment here cuts planning time by the mean plan length."""
     if mcts_params is None:
         mcts_params = mcts_lib.MCTSParams(repeats=50, max_depth=16)
-    plan = mcts_lib.make_bucketed_planner(agent, mcts_params, check_every=check_every,
-                                          min_bucket=min_bucket, graphed=graphed)
+    plan = mcts_lib.make_jit_planner(agent, mcts_params, graphed=graphed)
     render_fn = _render_fn(lut, cfg.resolution, cfg.colour_channels)
     device = lut.device
 
@@ -541,6 +538,9 @@ def run_sweep_bucketed(
         actions[empty, 0] = root_best[empty]
         return actions, np.maximum(lengths, 1)
 
+    def bucket_trace(batch):
+        return [batch] + [size for _, size in plan.schedule]
+
     g_env = seeded_generator(device, seed, _ENV_STREAM)
     env = env_lib.randomize(env_lib.reset(g_env, n_envs, device), g_env)
     env = env.replace(score=torch.zeros_like(env.score))
@@ -555,13 +555,13 @@ def run_sweep_bucketed(
         if plan_queue:
             need = np.nonzero(qpos >= qlen)[0]
             if need.size:
-                # The needing envs' frames, padded to a power-of-two bucket
-                # (planner rows are independent; pad rows are discarded).
-                pad = max(min_bucket, 1 << max(int(need.size) - 1, 0).bit_length())
+                # The needing envs' frames, padded to a bucket (planner
+                # rows are independent; pad rows are discarded).
+                pad = min(mcts_lib.bucket_size(int(need.size)), n_envs)
                 sel = np.concatenate([need, np.repeat(need[:1], pad - need.size)])
                 o = render_fn(env).index_select(0, torch.as_tensor(sel, device=device))
                 res = plan(o, plan_seed)
-                buckets.append(plan.bucket_trace)
+                buckets.append(bucket_trace(pad))
                 actions, lengths = plan_actions(res, need.size)
                 queue[need] = actions
                 qlen[need] = np.minimum(lengths, queue_cap) if queue_cap else lengths
@@ -573,7 +573,7 @@ def run_sweep_bucketed(
             qpos = np.where(scored.cpu().numpy(), qlen, qpos)
         else:
             res = plan(render_fn(env), plan_seed)
-            buckets.append(plan.bucket_trace)
+            buckets.append(bucket_trace(n_envs))
             a = plan_actions(res, n_envs)[0][:, 0]
             env, _, tallies = apply_actions(g_step, env, a)
         acc += tallies[:5].double().cpu().numpy()

@@ -197,8 +197,7 @@ class HostSlots:
     by turns, so that the host reads copy k while copy k + 1 is being
     written. On a card a slot is pinned, its copy is enqueued, and ``get``
     waits for that copy alone; a slot is allocated anew only when the shape
-    or dtype changes. One per loop (the search's flags, the bucketed
-    planner's done masks)."""
+    or dtype changes. One per loop (its stop flags)."""
 
     def __init__(self):
         self._host: List[Optional[torch.Tensor]] = [None, None]

@@ -134,7 +134,6 @@ class Call:
     agent: str = ""  # "f32", "bf16", or "trained" (bf16 on the trained weights)
     batch: int = 0
     params: list = dataclasses.field(default_factory=list)  # MCTSParams built
-    planner_kwargs: list = dataclasses.field(default_factory=list)
     plans: int = 0  # planner calls, warm-ups included
     cfg: object = None
     agent_dtype: str = ""
@@ -183,18 +182,6 @@ def port_main():
             return stub_result(frames.shape[0])
         return plan
 
-    def bucketed_factory(agent, p, check_every=16, min_bucket=32, graphed=None):
-        c = calls[-1]
-        c.params.append(p)
-        c.planner_kwargs.append(dict(check_every=check_every, min_bucket=min_bucket))
-        c.agent = names[id(agent)]
-
-        def plan(frames, seed_path):
-            c.batch = frames.shape[0]
-            c.plans += 1
-            return stub_result(frames.shape[0])
-        return plan
-
     def create_train_state(cfg, agent, generator, device):
         c = calls[-1]
         c.cfg, c.agent_dtype = cfg, str(agent.dtype).split(".")[-1]
@@ -225,12 +212,9 @@ def port_main():
         mp.setattr(bench, "bench_efe_rollouts", lambda *a, **k: 2.0e4)
         mp.setattr(bench, "bench_mcts_plans",
                    recording(calls, "plans", bench.bench_mcts_plans, mcts_result))
-        mp.setattr(bench, "bench_mcts_bucketed",
-                   recording(calls, "bucketed", bench.bench_mcts_bucketed, rate_of))
         mp.setattr(bench, "bench_train_round",
                    recording(calls, "train", bench.bench_train_round, rate_of))
         mp.setattr(tmcts, "make_jit_planner", plain_factory)
-        mp.setattr(tmcts, "make_bucketed_planner", bucketed_factory)
         mp.setattr(tloop, "create_train_state", create_train_state)
         mp.setattr(tloop, "make_epoch_fn", make_epoch_fn)
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -262,13 +246,8 @@ def jax_main():
                                          depth_capped=z, repeats_done=z + 1)
         return plan
 
-    def make_jit_planner(agent, p):
+    def make_planner(agent, p, **cadence):
         calls[-1].params.append(p)
-        return planner_stub(calls[-1], agent)
-
-    def make_bucketed_planner(agent, p, check_every=16, min_bucket=32):
-        calls[-1].params.append(p)
-        calls[-1].planner_kwargs.append(dict(check_every=check_every, min_bucket=min_bucket))
         return planner_stub(calls[-1], agent)
 
     def create_train_state(cfg, agent, key):
@@ -298,13 +277,17 @@ def jax_main():
         mp.setattr(jb, "bench_efe_rollouts", lambda *a, **k: 2.0e4)
         mp.setattr(jb, "bench_mcts_plans",
                    recording(calls, "plans", jb.bench_mcts_plans, mcts_result))
-        mp.setattr(jb, "bench_mcts_bucketed",
-                   recording(calls, "bucketed", jb.bench_mcts_bucketed, rate_of))
+        # bench.py's other MCTS benches (its bucketed planner's) return a rate.
+        others = [n for n in vars(jb) if n.startswith("bench_mcts_") and n != "bench_mcts_plans"]
+        for name in others:
+            mp.setattr(jb, name, recording(calls, name[len("bench_mcts_"):], getattr(jb, name),
+                                           rate_of))
         mp.setattr(jb, "bench_train_round",
                    recording(calls, "train", jb.bench_train_round, rate_of))
         mp.setattr(jb, "_try_load_trained_params", try_load)
-        mp.setattr(jmcts, "make_jit_planner", make_jit_planner)
-        mp.setattr(jmcts, "make_bucketed_planner", make_bucketed_planner)
+        # One stub for each of the JAX planners, plain and bucketed.
+        for name in [n for n in vars(jmcts) if n.startswith("make_") and n.endswith("_planner")]:
+            mp.setattr(jmcts, name, make_planner)
         mp.setattr(jloop, "create_train_state", create_train_state)
         mp.setattr(jloop, "make_jit_epoch", make_jit_epoch)
         mp.setattr(jcompcache, "enable_persistent_cache", lambda *a, **k: "")
@@ -324,25 +307,28 @@ def fields_of(dc):
 
 @pytest.mark.parametrize("key", MCTS_KEYS)
 def test_mcts_key_builds_the_jax_bench_params(key, port_main, jax_main):
-    """Per key: the same MCTSParams field by field, the same planner (plain
-    or bucketed, with its check cadence), batch, agent (dtype, trained or
-    seeded) and number of planner calls (warm-ups + reps)."""
+    """Per key: the same MCTSParams field by field, batch and agent (dtype,
+    trained or seeded); and, except on the bucketed keys, which
+    ``bench.py`` plans on its bucketed planner and the port on its one
+    planner, the same bench function and number of planner calls (warm-ups
+    + reps)."""
     t_run, _, t_calls = port_main
     j_run, j_calls = jax_main
     t, j = call_of(t_run, key, t_calls), call_of(j_run, key, j_calls)
-    assert t.fn == j.fn
     assert len(t.params) == len(j.params) == 1
     jp, tp = fields_of(j.params[0]), fields_of(t.params[0])
     assert tp == jp
-    assert t.planner_kwargs == j.planner_kwargs
-    assert (t.batch, t.agent, t.plans) == (j.batch, j.agent, j.plans)
+    assert (t.batch, t.agent) == (j.batch, j.agent)
+    if "bucketed" not in key:
+        assert (t.fn, t.plans) == (j.fn, j.plans)
 
 
 def test_mcts_avg_expansions_and_cap_fractions_come_from_their_keys(port_main, jax_main):
     t_run, _, t_calls = port_main
     j_run, j_calls = jax_main
-    for run, calls in ((t_run, t_calls), (j_run, j_calls)):
-        assert [c.fn for c in calls].count("plans") == 6
+    # The port's bucketed keys run bench_mcts_plans too.
+    for run, calls, plans in ((t_run, t_calls, 8), (j_run, j_calls, 6)):
+        assert [c.fn for c in calls].count("plans") == plans
         assert run["mcts_depth_cap_bind_frac"] == 0.0
         assert run["mcts_trained_avg_expansions"] == 1.0
 
@@ -401,8 +387,6 @@ TINY = {
     "mcts_trained": (lambda a, lut: bench.bench_mcts_plans(a["trained"], lut, repeats=4,
                                                            fused=True, reps=1, batch=8),
                      8 * 1),
-    "bucketed_trained": (lambda a, lut: bench.bench_mcts_bucketed(
-        a["trained"], lut, repeats=4, reps=1, check_every=1, min_bucket=2, B=8), 8 * 1),
     "train_f32": (lambda a, lut: bench.bench_train_round(lut, batch=8, rounds=2, reps=1),
                   8 * 5 * 2 * 1),
     "train_bf16": (lambda a, lut: bench.bench_train_round(lut, batch=8, bf16=True, rounds=2,
@@ -442,7 +426,7 @@ def test_main_without_a_card_raises(monkeypatch):
         raise AssertionError("a bench ran without a card")
 
     for name in ("bench_env_steps", "bench_efe_rollouts", "bench_mcts_plans",
-                 "bench_mcts_bucketed", "bench_train_round"):
+                 "bench_train_round"):
         monkeypatch.setattr(bench, name, never)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         bench.main([])

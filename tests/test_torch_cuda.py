@@ -249,7 +249,7 @@ def test_mcts_sweep_on_card_renders_once_per_macro(cuda_device, bucketed):
     def run():
         if bucketed:
             return sweep_lib.run_sweep_bucketed(agent, cfg, lut, seed=3, n_envs=32,
-                                                n_macro_steps=2, mcts_params=p, min_bucket=8)
+                                                n_macro_steps=2, mcts_params=p)
         return sweep_lib.run_sweep(agent, cfg, lut, seed=3, n_envs=32, n_macro_steps=2,
                                    method="mcts", mcts_params=p)
 

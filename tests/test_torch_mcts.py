@@ -14,6 +14,7 @@ tolerance of tests/test_torch_efe.py (rtol 1e-4 / atol 1e-2).
 """
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -76,6 +77,19 @@ def mock_roots(B, seed, peaked=()):
     for b, a in peaked:  # a habit distribution peaked on action a: phase A fires
         roots[b, a] = 25.0
     return roots
+
+
+def iterations(n):
+    """``_run_search``'s ``until`` for ``n`` iterations: it is asked before
+    every iteration but the first."""
+    asked = itertools.count(1)
+    return lambda active: next(asked) >= n
+
+
+def none_active(active):
+    """``_run_search``'s ``until`` for a search run until every env has
+    decided."""
+    return int(active) == 0
 
 
 def assert_results_equal(got, want, tree=False, paths=False):
@@ -173,7 +187,7 @@ def test_walk_of_host_known_length_equals_full_walk(mock_model):
                     tmcts._action_selection(carry.tree, p.max_depth, A)):
                 assert torch.equal(bounded, full)
             # One step fewer does fall short once the tree is that deep.
-            tmcts._run_search(TMockAgent(), carry, p, n + 1)
+            tmcts._run_search(TMockAgent(), carry, p, iterations(1))
         assert carry.i == p.repeats
         short = tmcts._select(carry.tree, p.C, False, p.max_depth, steps=1)
         assert not torch.equal(short[2], tmcts._select(carry.tree, p.C, False, p.max_depth)[2])
@@ -187,12 +201,12 @@ def test_search_stops_one_iteration_after_the_last_decision(mock_model):
     roots = torch.from_numpy(mock_roots(4, 7))
     with torch.inference_mode():
         carry = tmcts._init_search(TMockAgent(), roots, p, (0,))
-        tmcts._run_search(TMockAgent(), carry, p, 50)
+        tmcts._run_search(TMockAgent(), carry, p, none_active)
         slowest = int(carry.tree.repeats_done.max())
         assert carry.i == slowest + 1 < p.repeats
         assert bool(carry.done.all())
         before = [x.clone() for x in (carry.tree.W, carry.tree.N, carry.tree.children)]
-        tmcts._run_search(TMockAgent(), carry, p, 50)  # resumes, runs one no-op, stops
+        tmcts._run_search(TMockAgent(), carry, p, none_active)  # resumes, runs one no-op, stops
         assert carry.i == slowest + 2
         for x, y in zip(before, (carry.tree.W, carry.tree.N, carry.tree.children)):
             assert torch.equal(x, y)
@@ -375,7 +389,7 @@ def test_whole_search_matches_jax_tree(flagship, fused):
                     carry.tree.W[bidx, at], carry.tree.N[bidx, at], carry.tree.Qpi[bidx, at],
                     p.C, False).topk(2).values
                 clear &= (nodes[:, d] < 0) | (top[:, 0] - top[:, 1] > PROB_MARGIN)
-            tmcts._run_search(ta, carry, p, i + 1, draws=draws.iterations)
+            tmcts._run_search(ta, carry, p, iterations(1), draws=draws.iterations)
         got = tmcts._finalize_search(ta, carry, p)
     assert clear.sum() >= B // 2, clear
     rows = clear.numpy()

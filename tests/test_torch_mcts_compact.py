@@ -17,8 +17,10 @@ env's rows after a compaction would grow another tree. In each case:
 
 The counters ``mcts.row_iterations`` and ``mcts.compactions`` are held to
 the schedule, and the graph's path (a device iteration counter, whole-batch
-draws gathered in the body) to the op-by-op search, through a stand-in for
-``Graphs`` that runs its loops op by op.
+draws gathered in the body) to the op-by-op search in every case, through a
+stand-in for ``Graphs`` that runs its loops op by op. A gathered bucket
+shares no storage with the batch it came from, and ``bucket_size`` gives
+the smallest power-of-two bucket at or above ``MIN_BUCKET``.
 """
 
 import dataclasses
@@ -38,8 +40,10 @@ from deep_active_inference_mc_torch.utils import profiling
 from deep_active_inference_mc_torch.utils.device import seeded_generator
 from test_mcts import A, S_DIM, MockAgent, mock_calculate_G_mean, mock_step_simulate
 from test_torch_losses import t
+from test_torch_mcts import mock_model  # noqa: F401 (fixture)
 from test_torch_mcts import (RESULT_FLOATS, RESULT_INTS, TMockAgent, assert_results_equal,
-                             mock_roots, t_mock_calculate_G_mean, t_mock_step_simulate)
+                             iterations, mock_roots, t_mock_calculate_G_mean,
+                             t_mock_step_simulate)
 from test_torch_models import few_torch_threads  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
@@ -300,7 +304,7 @@ class LoopTwin:
         return True
 
 
-@pytest.mark.parametrize("case", ["compaction", "expand_k2", "fused", "injected"])
+@pytest.mark.parametrize("case", CASES)
 def test_the_graphs_path_compacts_alike(model, monkeypatch, case):
     """The graph's path, op by op (a device iteration counter, walks of
     max_depth steps, whole-batch draws gathered in the body), equals the
@@ -343,3 +347,37 @@ def test_bucket_rows_pick_each_envs_draws():
     sampled = tmcts._bucket_rows(torch.tensor([1]), 3, tmcts.MCTSParams(use_means=False,
                                                                         samples=2, crn=True), A)
     assert sampled.expand.tolist() == [1, 4] and sampled.fused_masks is None
+
+
+@pytest.mark.parametrize("n, floor, want", [(0, 16, 16), (1, 16, 16), (16, 16, 16),
+                                            (17, 16, 32), (200, 16, 256), (3, 2, 4)])
+def test_bucket_size(monkeypatch, n, floor, want):
+    """The smallest power of two that holds ``n`` envs, at least
+    ``MIN_BUCKET``: a compacted search's bucket and the bucketed sweep's
+    padding."""
+    monkeypatch.setattr(tmcts, "MIN_BUCKET", floor)
+    assert tmcts.bucket_size(n) == want
+
+
+@pytest.mark.usefixtures("mock_model")
+def test_gather_carry_copies():
+    """Compaction must not alias the tree it gathers from: the search goes
+    on writing the old rows in place."""
+    p = tmcts.MCTSParams(repeats=6, threshold=10.0, max_depth=8)
+    with torch.inference_mode():
+        carry = tmcts._init_search(TMockAgent(), torch.from_numpy(mock_roots(4, 0)), p, (0,))
+        tmcts._run_search(TMockAgent(), carry, p, iterations(2))
+        idx = torch.tensor([2, 0, 2, 2])
+        packed = tmcts._gather_carry(carry, idx)
+        frozen = {f: getattr(packed.tree, f).clone() for f in ("W", "N", "children", "s")}
+        assert packed.i == carry.i and packed.seed_path == carry.seed_path
+        assert torch.equal(packed.tree.W, carry.tree.W[idx])
+        tmcts._run_search(TMockAgent(), carry, p, iterations(2))  # writes the old tree only
+        for f, x in frozen.items():
+            assert torch.equal(getattr(packed.tree, f), x), f
+        assert not torch.equal(packed.tree.N, carry.tree.N[idx])
+        # The packed search goes on from the same iteration with the same
+        # per-iteration seeds: its rows catch up with the old tree's.
+        tmcts._run_search(TMockAgent(), packed, p, iterations(2))
+        assert torch.equal(packed.tree.W, carry.tree.W[idx])
+        assert torch.equal(packed.tree.children, carry.tree.children[idx])

@@ -17,14 +17,14 @@ of ``max_depth`` steps, each iteration's noise drawn ahead by
   and, on the deterministic mock of tests/test_mcts.py, to the JAX
   package's ``make_jit_planner`` (``plan/mcts.py:1082``): integers equal,
   floats to ``FLOAT_TOL`` (tests/test_torch_mcts.py);
-- the bucketed planner through the twin equal to the eager one, its
-  ``bucket_trace`` and ``schedule`` too;
 - the loop's stop rule, ``HostSlots``, and a graphed planner on the CPU
   raising;
 - every entry point that plans (the sweep CLI and ``make_sweep``'s mcts,
-  plain and bucketed, the demo, distillation's collect, the bench's MCTS
-  keys) building its planner graphed by default, op by op when asked or
-  under a mesh.
+  with and without ``--mcts_bucketed``, the demo, distillation's collect,
+  the bench's MCTS keys) building its planner graphed by default, op by op
+  when asked or under a mesh.
+
+The compaction's graph path is held in tests/test_torch_mcts_compact.py.
 
 ``cuda``-marked tests hold each graphed planner against the same planner
 op by op, bit for bit, the mcts sweeps' planners replaying their graphs
@@ -84,11 +84,7 @@ def few_torch_threads():
 class EagerLoops:
     """``Graphs`` for any device: ``while_loop`` runs the body op by op."""
 
-    def __init__(self):
-        self.loops = 0
-
     def while_loop(self, body, carry, xs, n, stop, deps=tuple, key=(), until=bool):
-        self.loops += 1
         return graphs.eager_while_loop(body, carry, xs, n, stop, until)
 
 
@@ -249,50 +245,6 @@ def test_jit_planner_matches_the_jax_jit_planner(mock_model, case):
     assert plan.graphs.captures == 0 and got.tree is None
 
 
-class DrawingMock:
-    """tests/test_torch_mcts.py's mock agent with what ``draw_iteration``
-    reads (its draws feed a model that ignores them)."""
-
-    def __init__(self):
-        from test_torch_mcts import TMockAgent
-
-        self._mock = TMockAgent()
-        self.pi_dim, self.pi_one_hot = self._mock.pi_dim, self._mock.pi_one_hot
-        self.s_dim, self.dtype = 6, torch.float32
-        self.mid = types.SimpleNamespace(
-            draw_masks=lambda rows, g, d: [torch.rand((rows, 8), generator=g, device=d) < 0.5])
-
-    def encode(self, frames):
-        return self._mock.encode(frames)
-
-    def habit(self, s):
-        return self._mock.habit(s)
-
-
-@pytest.mark.parametrize("case", ["compaction", "phase_a", "odd_batch", "expand_k"])
-def test_bucketed_planner_through_the_loop_twin(mock_model, monkeypatch, case):
-    """tests/test_torch_mcts_bucketed.py's cases: the bucketed planner whose
-    chunks take the graph's path op by op equals the eager one bit for
-    bit, with the same bucket trace and compaction schedule."""
-    from test_torch_mcts import mock_roots
-    from test_torch_mcts_bucketed import CASES
-
-    fields, batch, seed, peaked, check_every, min_bucket = CASES[case]
-    roots = torch.from_numpy(mock_roots(batch, seed, peaked))
-    p = tmcts.MCTSParams(**fields)
-    agent = DrawingMock()
-    eager = tmcts.make_bucketed_planner(agent, p, check_every, min_bucket, graphed=False)
-    want = eager(roots, (seed,))
-    monkeypatch.setattr(tmcts.graphs_lib, "Graphs", EagerLoops)
-    twin = tmcts.make_bucketed_planner(agent, p, check_every, min_bucket, graphed=True)
-    got = twin(roots, (seed,))
-    assert_same(got, want)
-    assert twin.bucket_trace == eager.bucket_trace and twin.schedule == eager.schedule
-    assert twin.graphs.loops > 1  # one loop per chunk
-    if case != "phase_a":
-        assert len(twin.bucket_trace) > 1
-
-
 # ------------------------------------------------------------ the helper
 def test_loop_stops_one_step_after_its_flag():
     """``stop`` is read one step late: a counter that should stop at 3
@@ -314,8 +266,7 @@ def test_graphed_planners_raise_on_the_cpu(agents):
     agent, o = agents[torch.float32], frames_of(2)
     p = tmcts.MCTSParams(repeats=2, max_depth=3)
     runs = (lambda: tmcts.make_jit_planner(agent, p, graphed=True)(o, (0,)),
-            lambda: tmcts.active_inference_mcts(agent, o, p, (0,), graphed=True),
-            lambda: tmcts.make_bucketed_planner(agent, p, graphed=True)(o, (0,)))
+            lambda: tmcts.active_inference_mcts(agent, o, p, (0,), graphed=True))
     for run in runs:
         with pytest.raises(ValueError, match="CUDA tensors only"):
             run()
@@ -328,7 +279,7 @@ def test_graphed_planners_raise_on_the_cpu(agents):
 
 def test_host_slots_keep_each_copy_until_two_later():
     """``HostSlots`` hands back copy k until copy k + 2 is put, and takes a
-    new shape (the bucketed planner's masks shrink)."""
+    new shape."""
     slots = graphs.HostSlots()
     slots.put(0, torch.tensor([True, False]))
     slots.put(1, torch.tensor([False]))
@@ -378,33 +329,30 @@ def _bench(name, **kw):
 # None: graphed on a card; False: op by op.
 ENTRY_POINTS = {
     "sweep_cli_mcts": (_cli_sweep(), ("jit", None)),
-    "sweep_cli_mcts_bucketed": (_cli_sweep("--mcts_bucketed"), ("bucketed", None)),
+    "sweep_cli_mcts_bucketed": (_cli_sweep("--mcts_bucketed"), ("jit", None)),
     "sweep_cli_mcts_op_by_op": (_cli_sweep(graphed=False), ("jit", False)),
     "sweep_cli_bucketed_op_by_op": (_cli_sweep("--mcts_bucketed", graphed=False),
-                                    ("bucketed", False)),
+                                    ("jit", False)),
     "make_sweep_mcts": (_make_sweep(), ("jit", None)),
     "make_sweep_mcts_mesh": (_make_sweep(mesh=object()), ("jit", False)),
     "demo": (_demo, ("jit", None)),
     "distiller": (_distiller, ("jit", None)),
     "bench_mcts_plans": (_bench("bench_mcts_plans", batch=2), ("jit", None)),
-    "bench_mcts_bucketed": (_bench("bench_mcts_bucketed", B=2), ("bucketed", None)),
 }
 
 
 @pytest.mark.parametrize("case", ENTRY_POINTS)
 def test_each_entry_point_builds_its_planner_graphed_by_default(agents, monkeypatch, case):
-    """Every path that plans builds ``make_jit_planner`` or
-    ``make_bucketed_planner`` with ``graphed=None`` (a graph on a card)
-    unless it is asked for op by op or runs under a mesh (gloo cannot be
-    captured): the sweep's mcts once set it to False by mistake."""
+    """Every path that plans builds ``make_jit_planner`` with
+    ``graphed=None`` (a graph on a card) unless it is asked for op by op or
+    runs under a mesh (gloo cannot be captured): the sweep's mcts once set
+    it to False by mistake."""
     def spy(kind, real):
         def build(*a, **kw):
             raise _Built(kind, inspect.signature(real).bind(*a, **kw).arguments.get("graphed"))
         return build
 
     monkeypatch.setattr(tmcts, "make_jit_planner", spy("jit", tmcts.make_jit_planner))
-    monkeypatch.setattr(tmcts, "make_bucketed_planner",
-                        spy("bucketed", tmcts.make_bucketed_planner))
     run, want = ENTRY_POINTS[case]
     with pytest.raises(_Built) as built:
         run(agents[torch.float32], traster.build_sprite_lut(CPU))
@@ -423,12 +371,12 @@ def cuda_device():
 @pytest.mark.cuda
 def test_each_graphed_planner_replays_its_eager_search(cuda_device):
     """On a card, from one seed: ``make_jit_planner`` graphed against op by
-    op in each variant (paths collected), and the bucketed planner at 64
-    envs, every result field bit-equal, the bucket traces equal; a second
-    plan replays without a new capture; one graph per bucket size. With
-    cuDNN's defaults the decoder's transposed convolutions sum with
-    atomics, so G differs eager against eager in the last bits; its
-    deterministic algorithms leave nothing to differ by."""
+    op in each variant (paths collected), every result field bit-equal; a
+    second plan replays without a new capture. With cuDNN's defaults the
+    decoder's transposed convolutions sum with atomics, so G differs eager
+    against eager in the last bits; its deterministic algorithms leave
+    nothing to differ by. A compacting plan graphed against op by op:
+    ``test_the_flagship_planner_compacts_as_it_plans_uncompacted``."""
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -449,23 +397,13 @@ def replay_each_planner(dev):
         assert_same(got, want, paths=True)
         assert_same(plan(o, (3,)), want, paths=True)
         assert plan.graphs.captures == 1, case
-    p = tmcts.MCTSParams(repeats=24, simulation_depth=2, max_depth=8, threshold=0.3,
-                         fused_eval=True)
-    o = frames_of(64, dev)
-    runs = {}
-    for graphed in (False, True):
-        plan = tmcts.make_bucketed_planner(agents_[torch.float32], p, 2, 8, graphed=graphed)
-        runs[graphed] = (plan(o, (4,)), plan.bucket_trace, plan.schedule, plan.graphs)
-    assert_same(runs[True][0], runs[False][0])
-    assert runs[True][1:3] == runs[False][1:3]
-    assert runs[True][3].count == len(set(runs[True][1]))
 
 
 @pytest.mark.cuda
 def test_the_mcts_sweeps_replay_their_planners(cuda_device, monkeypatch):
-    """The sweep's ``mcts``, plain (``make_sweep``) and bucketed
-    (``run_sweep_bucketed``), with their defaults on a card: the planner
-    replays its graphs, and the scores equal the sweep's op by op."""
+    """The sweep's ``mcts`` (``make_sweep``) and ``run_sweep_bucketed``,
+    with their defaults on a card: the planner replays its graphs, and the
+    scores equal the sweep's op by op."""
     from deep_active_inference_mc_torch.config import Config
     from deep_active_inference_mc_torch.train import sweep as sweep_lib
 
@@ -485,18 +423,17 @@ def test_the_mcts_sweeps_replay_their_planners(cuda_device, monkeypatch):
                               run.planner.graphs.replays)
         assert plain[False][1] == 0 and plain[None][1] > 0
         assert torch.equal(plain[None][0], plain[False][0])
-        planners, real = [], tmcts.make_bucketed_planner
+        planners, real = [], tmcts.make_jit_planner
 
         def keep(*a, **kw):
             planners.append(real(*a, **kw))
             return planners[-1]
 
-        monkeypatch.setattr(tmcts, "make_bucketed_planner", keep)
+        monkeypatch.setattr(tmcts, "make_jit_planner", keep)
         bucketed = {}
         for graphed in (False, None):
             out = sweep_lib.run_sweep_bucketed(agent, cfg, lut, n_envs=64, n_macro_steps=2,
-                                               mcts_params=p, check_every=2, min_bucket=8,
-                                               graphed=graphed)
+                                               mcts_params=p, graphed=graphed)
             bucketed[graphed] = (out["scores"], planners[-1].graphs.replays)
         assert bucketed[False][1] == 0 and bucketed[None][1] > 0
         assert torch.equal(bucketed[None][0], bucketed[False][0])
@@ -543,8 +480,8 @@ def test_the_flagship_planner_compacts_as_it_plans_uncompacted(cuda_device, monk
     draws = lambda: tmcts.SearchDraws(None, LazyDraws(agent, p, 256, cuda_device, 11))
     floor = tmcts.MIN_BUCKET
 
-    def plan(min_bucket, graphed=None):
-        monkeypatch.setattr(tmcts, "MIN_BUCKET", min_bucket)
+    def plan(smallest, graphed=None):
+        monkeypatch.setattr(tmcts, "MIN_BUCKET", smallest)
         planner = tmcts.make_jit_planner(agent, p, graphed=graphed)
         return planner(o, (5,), draws=draws()), planner.schedule
 

@@ -331,20 +331,107 @@ def test_queue_cap_one_is_replanning_every_macro(monkeypatch, luts):
 @pytest.mark.parametrize("plan_queue", [False, True])
 def test_run_sweep_bucketed_runs(plan_queue):
     """The bucketed sweep at 8 envs: finite scores, one bucket trace per
-    plan, at most one plan per macro step; a seeded run repeats exactly."""
+    plan, at most one plan per macro step; 8 envs are below ``MIN_BUCKET``,
+    so no plan pads or compacts; a seeded run repeats exactly."""
     agent = tsweep_app.build_agent(Config(), "", torch.device("cpu"))
     lut = traster.build_sprite_lut("cpu")
-    kw = dict(seed=6, n_envs=8, n_macro_steps=3, jumps=2, check_every=2, min_bucket=4,
+    kw = dict(seed=6, n_envs=8, n_macro_steps=3, jumps=2,
               mcts_params=tmcts.MCTSParams(repeats=3, simulation_depth=1, max_depth=8),
               plan_queue=plan_queue, queue_cap=2 if plan_queue else 0)
     out = tsweep.run_sweep_bucketed(agent, Config(), lut, **kw)
     assert out["scores"].shape == (8,) and torch.isfinite(out["scores"]).all()
     traces = out["bucket_traces"]
     assert 1 <= len(traces) <= 3 and (plan_queue or len(traces) == 3)
-    assert traces[0][0] == 8 and all(b >= 4 for tr in traces for b in tr)
+    assert all(tr == [8] for tr in traces), traces
     again = tsweep.run_sweep_bucketed(agent, Config(), lut, **kw)
     assert torch.equal(out["env"].latents, again["env"].latents)
     assert again["bucket_traces"] == traces
+
+
+RESULT_FIELDS = ("actions", "lengths", "repeats_done", "states_explored", "depth_capped",
+                 "root_N", "root_Qpi")
+
+
+@pytest.mark.parametrize("plan_queue, queue_cap", [(False, 0), (True, 0), (True, 1)],
+                         ids=["no_queue", "plan_queue", "queue_cap1"])
+def test_bucketed_sweep_plans_as_the_jit_planner(monkeypatch, plan_queue, queue_cap):
+    """``run_sweep_bucketed`` at 8 envs with ``MIN_BUCKET`` 2, so that its
+    pads and its planner's buckets can be smaller than the batch. Replayed
+    on the host from what the sweep planned and stepped: the envs that
+    need a plan are those whose queue ran out (every env without a queue);
+    their frames, padded with the first one's, go to the planner at
+    ``min(bucket_size(need), n_envs)`` rows and the macro step's seed path;
+    each plan is ``active_inference_mcts``'s on those frames and seed path,
+    bit for bit, its bucket trace its batch and then its schedule's sizes;
+    the actions executed are the queued plans' (an empty plan's the
+    visit-max root action), and they move the env."""
+    n_envs, macros, seed = 8, 4, 3
+    # C small: the walks go deep, so plans are long and queues last.
+    p = tmcts.MCTSParams(repeats=3, simulation_depth=1, max_depth=8, C=0.01)
+    agent = tsweep_app.build_agent(Config(), "", torch.device("cpu"))
+    lut = traster.build_sprite_lut("cpu")
+    render = tsweep._render_fn(lut, 64, 1)
+    monkeypatch.setattr(tmcts, "MIN_BUCKET", 2)
+    plans, steps = [], []
+    real_planner, real_step = tmcts.make_jit_planner, tsweep._step_and_tally
+
+    def make_planner(agent_, p_, **kw):
+        planner = real_planner(agent_, p_, **kw)
+
+        def plan(frames, seed_path=None, draws=None):
+            res = planner(frames, seed_path, draws)
+            plan.schedule = planner.schedule
+            # Copies: on the CPU the sweep's host copies of a plan share its memory.
+            kept = res._replace(**{f: getattr(res, f).clone() for f in RESULT_FIELDS})
+            plans.append((frames, seed_path, kept, list(planner.schedule)))
+            return res
+        return plan
+
+    def step(env, a_env, *a, **kw):
+        out = real_step(env, a_env, *a, **kw)
+        steps.append((env, a_env, out[1]))
+        return out
+
+    monkeypatch.setattr(tmcts, "make_jit_planner", make_planner)
+    monkeypatch.setattr(tsweep, "_step_and_tally", step)
+    out = tsweep.run_sweep_bucketed(agent, Config(), lut, seed=seed, n_envs=n_envs,
+                                    n_macro_steps=macros, jumps=2, mcts_params=p,
+                                    plan_queue=plan_queue, queue_cap=queue_cap)
+    assert len(steps) == macros and len(out["bucket_traces"]) == len(plans)
+    cap = queue_cap if plan_queue else 1  # no queue: every env plans every step
+    queue = torch.zeros((n_envs, p.max_depth), dtype=torch.long)
+    qlen = torch.zeros(n_envs, dtype=torch.long)
+    qpos = torch.zeros(n_envs, dtype=torch.long)
+    k, pads = 0, []
+    for i, (env, a_env, scored) in enumerate(steps):
+        need = torch.nonzero(qpos >= qlen)[:, 0]
+        if need.numel():
+            frames, seed_path, res, schedule = plans[k]
+            pad = frames.shape[0]
+            assert pad == min(tmcts.bucket_size(need.numel()), n_envs)
+            sel = torch.cat([need, need[:1].repeat(pad - need.numel())])
+            assert torch.equal(frames, render(env)[sel])
+            assert seed_path == (seed, 2, i)
+            want = tmcts.active_inference_mcts(agent, frames, p, seed_path)
+            for name in RESULT_FIELDS:
+                assert torch.equal(getattr(res, name), getattr(want, name)), name
+            assert out["bucket_traces"][k] == [pad] + [size for _, size in schedule]
+            actions, lengths = res.actions[:need.numel()].clone(), res.lengths[:need.numel()]
+            empty = lengths <= 0
+            actions[empty, 0] = res.root_N[:need.numel()].argmax(-1)[empty]
+            queue[need] = actions
+            qlen[need] = lengths.clamp(min=1).clamp(max=cap) if cap else lengths.clamp(min=1)
+            qpos[need] = 0
+            k, pads = k + 1, pads + [(need.numel(), pad)]
+        assert torch.equal(a_env, queue[torch.arange(n_envs), qpos])
+        qpos = torch.where(scored, qlen, qpos + 1)
+    assert k == len(plans)
+    ends = [env for env, _, _ in steps[1:]] + [out["env"]]
+    assert all(not torch.equal(env.latents, end.latents) for (env, _, _), end in zip(steps, ends))
+    if plan_queue and not queue_cap:
+        assert any(pad < n_envs for _, pad in pads), pads
+    else:
+        assert pads == [(n_envs, n_envs)] * macros
 
 
 MCTS_CLI = ["--device", "cpu", "--method", "mcts", "--envs", "8", "--macro", "2",
@@ -356,8 +443,8 @@ MCTS_CLI = ["--device", "cpu", "--method", "mcts", "--envs", "8", "--macro", "2"
     (["--mcts_fused", "--mcts_c", "2", "--mcts_prior_explore", "--mcts_habit",
       "--mcts_threshold", "0.4", "--mcts_depth", "2"], "mcts"),
     (["--mcts_crn", "--plan_queue", "--queue_cap", "2"], "mcts+queuecap2"),
-    (["--mcts_bucketed", "--mcts_check_every", "2", "--mcts_min_bucket", "4"], "mcts"),
-    (["--mcts_bucketed", "--plan_queue", "--mcts_min_bucket", "4"], "mcts+queue"),
+    (["--mcts_bucketed"], "mcts"),
+    (["--mcts_bucketed", "--plan_queue"], "mcts+queue"),
 ], ids=["plain", "fused-and-knobs", "crn-queue", "bucketed", "bucketed-queue"])
 def test_mcts_cli_prints_its_row(capsys, flags, label):
     out = tsweep_app.main(MCTS_CLI + flags)
