@@ -52,6 +52,25 @@ Phases (any failure exits non-zero and prints no result):
      with the plain version (on a card, cuDNN's chain: the decoder before
      the kernel), beside the FLOP bound (495 TFLOP/s TF32) and the byte
      bound with and without the third layer's output in device memory.
+  2c. the encoder's conv kernel (``ops/cuda/conv.cu``, 3 launches an
+     encode) on the flagship's layer shapes with seeded weights and nonzero
+     biases, at 1, 33, 512, 1024, 2048 and 4096 rows of frames half zero:
+     each launch on its own input (the launch before's output) against
+     ``conv.stage_tf32``, in float64 with the kernel's operands (beyond the
+     half TF32 unit of its own rounding, within FP32 summation's bound);
+     the flatten within ``conv.encode_tf32``'s bound; each beside its max
+     |err| against the plain version in float64. The same launches'
+     arithmetic with a planted fault (bf16 operands, tap (0, 0) dropped,
+     the SAME pad on the leading edge), emulated in float32 with TF32 off,
+     read against the same model. Rows encoded alone bit-equal to the 4096
+     batch's. torch.profiler shows one encode as its 3 launches and a
+     no-grad ``Encoder`` forward without cuDNN's fprop, layout or pad
+     kernels (checked before phase 2, as 2b's). At 512, 1024, 2048 and
+     4096: the encode's and each launch's device time with a clean L2, in
+     turns with the plain version (on a card, cuDNN's chain: the encoder
+     before the kernel), beside the FLOP bound (495 TFLOP/s TF32), the
+     byte bounds of the function and of the launches and, at 4096, the
+     0.5 ms budget.
  3. the serving path at full width: the sweep CLI's ``main`` with the
      ``ai`` controller (mean G, 1 step, 1 sample, 5 jumps) at 1024 envs for
      20 macro steps, then ``habit``, on the seeded flagship-width agent.
@@ -294,6 +313,10 @@ RENDER_TIME_B = (1, MCTS_ENVS, TRAIN_BATCH, SWEEP_ENVS, DISTILL_BATCH, 4096)
 DECONV_CHECK_B = (1, 33, TRAIN_BATCH, 4096)  # the demo, an odd size, a round's, the G sweep's rows
 DECONV_TIME_B = (TRAIN_BATCH, 4096)
 DECONV_LAUNCHES = 4  # per decode: one per layer
+CONV_CHECK_B = (1, 33, TRAIN_BATCH, 1024, 2048, 4096)  # the demo to the habit sweep's rows
+CONV_TIME_B = (TRAIN_BATCH, 1024, 2048, 4096)
+CONV_LAUNCHES = 3  # per encode: layers 1-2, 3, 4
+CONV_BUDGET_MS = 0.5  # an encode of 4096 rows
 TF32_FLOPS = 495e12  # an H100 SXM's dense TF32 tensor-core peak (NVIDIA's data sheet)
 TRAIN_FLAGS = ["--crn", "--gen_mean", "--explore_eps", "0.1", "--edge_frac", "0.3",
                "--gen_habit_mix", "0.5"]
@@ -745,6 +768,196 @@ def phase_deconv(torch, dev, bw: float, smi: str) -> dict:
     return numbers
 
 
+def seeded_encoder(torch, dev):
+    """The flagship's encoder widths, seeded weights, nonzero biases."""
+    from deep_active_inference_mc_torch.models import networks
+
+    g = torch.Generator().manual_seed(0)
+    enc = networks.Encoder()
+    networks.he_uniform_init_(enc, g)
+    with torch.no_grad():
+        for p in enc.parameters():
+            if p.dim() == 1:
+                p.uniform_(-0.1, 0.1, generator=g)
+    return enc.to(dev)
+
+
+def encoder_frames(torch, B, g, dev):
+    """Frames in [0, 1) with half their pixels 0, as sprites on a black field."""
+    x = torch.rand((B, 1, 64, 64), generator=g)
+    return torch.where(torch.rand(x.shape, generator=g) < 0.5, 0.0, x).to(dev)
+
+
+def conv_work(B) -> dict:
+    """FLOPs of an encode of B rows (2 x 9 x Cin x Cout per output pixel),
+    and its bytes: the frames read and the flatten written once (the
+    function), and what the three launches move (the launches)."""
+    flops, width, cin = 0, 64, 1
+    for cout in (32, 32, 64, 64):
+        width //= 2
+        flops += 2 * 9 * cin * cout * width * width * B
+        cin = cout
+    frame, flat = 4 * 64 * 64, 4 * 4 * 4 * 64
+    h2, h3 = 4 * 16 * 16 * 32, 4 * 8 * 8 * 64
+    return dict(flops=flops, bytes=B * (frame + flat),
+                bytes_launched=B * (frame + 2 * h2 + 2 * h3 + flat))
+
+
+def conv_route(torch, dev) -> None:
+    """One encode is the kernel's 3 launches, and a no-grad ``Encoder``
+    forward runs none of cuDNN's fprop, layout or the SAME pad's kernels
+    (torch.profiler; before phase 2, as ``deconv_route``)."""
+    from deep_active_inference_mc_torch.ops.cuda import conv as k_conv
+
+    enc = seeded_encoder(torch, dev)
+    o = encoder_frames(torch, TRAIN_BATCH, torch.Generator().manual_seed(1), dev)
+    route = device_kernels(torch, torch.no_grad()(lambda: k_conv.encode_flat(o, enc.conv)))
+    check(sum(c for _, c in route) == CONV_LAUNCHES and all("encoder_" in k for k, _ in route),
+          f"one encode ran {route} on the device, want {CONV_LAUNCHES} conv launches")
+    forward = device_kernels(torch, torch.no_grad()(lambda: enc(o)))
+    stray = [k for k, _ in forward if any(n in k for n in (
+        "fprop", "nchwToNhwc", "nhwcToNchw", "FillFunctor", "direct_copy"))]
+    check(not stray, f"a no-grad Encoder forward still ran {stray}")
+    print(f"[conv] one encode at B={TRAIN_BATCH}: {route}; a no-grad Encoder forward: "
+          f"{forward} (torch.profiler)", flush=True)
+
+
+def emulate_conv_stage(torch, x, layers, stage: int, fault: str):
+    """One conv launch's arithmetic with a planted fault, in float32 on the
+    card with TF32 off (exact products, FP32 sums), outputs rounded to TF32
+    where a tensor-core layer reads them; NHWC out."""
+    import torch.nn.functional as F
+
+    from deep_active_inference_mc_torch.ops.cuda import conv as k_conv
+    from deep_active_inference_mc_torch.ops.cuda import deconv as k_deconv
+
+    pad = (1, 0, 1, 0) if fault == "leading pad" else (0, 1, 0, 1)
+    x = x.bfloat16().float() if fault == "bf16" else x
+    x = x if stage == 0 else x.permute(0, 3, 1, 2)
+    with torch.no_grad(), tf32_off(torch):
+        for i in k_conv.STAGES[stage]:
+            w = layers[i].weight.detach()
+            w = k_deconv.tf32_round(w) if i else w.clone()
+            if fault == "bf16":
+                w = w.bfloat16().float()
+            elif fault == "tap":
+                w[:, :, 0, 0] = 0
+            x = F.relu(F.conv2d(F.pad(x, pad), w, layers[i].bias, 2))
+            if i < 3:
+                x = k_deconv.tf32_round(x)
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_accuracy(torch, o, layers, faults: bool) -> dict:
+    """The encoder kernel's accuracy on frames ``o``: each launch on its
+    own input against ``conv.stage_tf32`` (the largest share of its bound)
+    and the plain version in float64 (max |err|); the flatten against
+    ``encode_tf32`` and the plain version; with ``faults``, each planted
+    fault's share per launch."""
+    import copy
+
+    from deep_active_inference_mc_torch.ops.cuda import conv as k_conv
+
+    layers64 = copy.deepcopy(layers).double()
+    x, per_stage = o, []
+    for stage in range(CONV_LAUNCHES):
+        out = k_conv.stage_cuda(x, layers, stage)
+        row = dict(used=float(k_conv.stage_tf32_share(out, x, layers, stage).max()),
+                   max_abs_err=float((out.double() - k_conv.stage_plain(
+                       x.double(), layers64, stage)).abs().max()))
+        if faults:
+            row["faults"] = {f: float(k_conv.stage_tf32_share(
+                emulate_conv_stage(torch, x, layers, stage, f), x, layers, stage).max())
+                for f in ("bf16", "tap", "leading pad")}
+        per_stage.append(row)
+        x = out
+    value, bound = k_conv.encode_tf32(o, layers)
+    exact = k_conv.encode_flat_plain(o.double(), layers64)
+    return dict(stages=per_stage, flat=x.reshape(o.shape[0], -1),
+                used=float(k_conv.tf32_share(x.reshape(o.shape[0], -1), value, bound,
+                                             rounded=False).max()),
+                max_abs_err=float((x.reshape(o.shape[0], -1).double() - exact).abs().max()),
+                tf32_abs_err=float((value - exact).abs().max()))
+
+
+def phase_conv(torch, dev, bw: float, smi: str) -> dict:
+    """The encoder's kernel against its precision's float64 model, its
+    plain version and planted faults; times and bounds at the timed
+    sizes. Returns {B: its numbers}."""
+    from deep_active_inference_mc_torch.ops.cuda import conv as k_conv
+
+    g = torch.Generator().manual_seed(3)
+    layers = seeded_encoder(torch, dev).conv
+    l2 = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    flush = l2.sum
+    numbers = {}
+    with torch.inference_mode():
+        for B in CONV_CHECK_B:
+            o = encoder_frames(torch, B, g, dev)
+            acc = conv_accuracy(torch, o, layers, faults=B in (TRAIN_BATCH, 4096))
+            for i, a in enumerate(acc["stages"]):
+                check(a["used"] <= 1.0, f"the conv kernel at B={B}: launch {i + 1} lies "
+                      f"{a['used']:.3f} x FP32 summation's bound from stage_tf32")
+                for fault, used in a.get("faults", {}).items():
+                    check(used > 1.0, f"conv: the model did not flag fault {fault} in launch "
+                          f"{i + 1} at B={B} ({used:.3f})")
+            check(acc["used"] <= 1.0, f"the conv kernel at B={B}: the flatten lies "
+                  f"{acc['used']:.3f} x encode_tf32's bound away")
+            line = (f"[conv] B={B}: each launch on its own input against stage_tf32, share of "
+                    f"its bound used " + ", ".join(f"{a['used']:.4f}" for a in acc["stages"])
+                    + "; against the plain version in float64, max |err| "
+                    + ", ".join(f"{a['max_abs_err']:.3e}" for a in acc["stages"])
+                    + f"; the flatten against encode_tf32 {acc['used']:.4f} of its bound, "
+                    f"against the plain version {acc['max_abs_err']:.3e} (the TF32 model's own "
+                    f"{acc['tf32_abs_err']:.3e})")
+            if "faults" in acc["stages"][0]:
+                line += "; faults' shares by launch: " + "; ".join(
+                    f"{f} " + ", ".join(f"{a['faults'][f]:.3g}" for a in acc["stages"])
+                    for f in acc["stages"][0]["faults"])
+            if B == 4096:
+                for i in (0, 1, 2047, 4095):
+                    alone = k_conv.encode_flat(o[i:i + 1].contiguous(), layers)
+                    check(torch.equal(alone[0], acc["flat"][i]), f"conv: row {i} alone differs")
+                line += "; rows 0, 1, 2047, 4095 alone bit-equal to the batch's"
+            print(line, flush=True)
+            if B not in CONV_TIME_B:
+                continue
+            h = [o]
+            for stage in range(CONV_LAUNCHES):
+                h.append(k_conv.stage_cuda(h[-1], layers, stage))
+            fns = {"kernel": lambda: k_conv.encode_flat_cuda(o, layers)}
+            for stage in range(CONV_LAUNCHES):
+                fns[f"launch {stage + 1}"] = (lambda stage=stage: k_conv.stage_cuda(
+                    h[stage], layers, stage))
+            # The plain version on a card is cuDNN's chain, the encoder before the kernel.
+            fns["plain (cuDNN)"] = lambda: k_conv.encode_flat_plain(o, layers)
+            warm_up_clocks(torch, dev)
+            t = time_clean_l2_ms(torch, fns, flush)
+            work = conv_work(B)
+            ms, library_ms = t["kernel"][1], t["plain (cuDNN)"][1]
+            bounds = dict(flops_ms=work["flops"] / TF32_FLOPS * 1e3,
+                          bytes_ms=work["bytes"] / bw * 1e3,
+                          bytes_launched_ms=work["bytes_launched"] / bw * 1e3)
+            numbers[B] = dict(max_abs_err=acc["max_abs_err"], bound_used=acc["used"], ms=ms,
+                              plain_ms=library_ms, library_ms=library_ms,
+                              launches_ms=[t[f"launch {i + 1}"][1] for i in range(CONV_LAUNCHES)],
+                              bound_ms=max(bounds["flops_ms"], bounds["bytes_ms"]), **work,
+                              **bounds, stages=acc["stages"])
+            budget = "" if B != 4096 else (
+                f"; {'within' if ms <= CONV_BUDGET_MS else 'OVER'} the {CONV_BUDGET_MS} ms budget")
+            spread = ", ".join(f"{k} {q[1]:.5f} ({q[0]:.5f}-{q[2]:.5f})" for k, q in t.items())
+            print(f"[conv] B={B}: clean L2, no events, ms per call median (min-max of "
+                  f"{2 * CLEAN_L2_ROUNDS} runs of {TIMING_REPS}): {spread}; encode "
+                  f"{work['flops'] / 1e9:.3f} GFLOP, {work['bytes'] / 1e6:.1f} MB "
+                  f"({work['bytes_launched'] / 1e6:.1f} MB as launched): FLOP bound "
+                  f"{bounds['flops_ms']:.5f} ms ({bounds['flops_ms'] / ms:.1%}), byte bound "
+                  f"{bounds['bytes_ms']:.5f} ms ({bounds['bytes_ms'] / ms:.1%}), as launched "
+                  f"{bounds['bytes_launched_ms']:.5f} ms ({bounds['bytes_launched_ms'] / ms:.1%})"
+                  f", {work['flops'] / ms / 1e9:.1f} TFLOP/s; {library_ms / ms:.2f} x faster than "
+                  f"cuDNN's chain{budget} [{smi}]", flush=True)
+    return numbers
+
+
 def phase_sweep(torch, smi: str, args) -> dict:
     """The main path through the sweep CLI, with launch counts."""
     from deep_active_inference_mc_torch.apps import sweep as sweep_app
@@ -767,6 +980,9 @@ def phase_sweep(torch, smi: str, args) -> dict:
         check(launches.get("deconv", 0) == DECONV_LAUNCHES * decodes,
               f"{method}: {launches.get('deconv', 0)} deconv launches, want "
               f"{DECONV_LAUNCHES * decodes}")
+        encodes = (2 if method == "ai" else 1) * SWEEP_MACRO  # ai re-encodes G's decode
+        check(launches.get("conv", 0) == CONV_LAUNCHES * encodes,
+              f"{method}: {launches.get('conv', 0)} conv launches, want {CONV_LAUNCHES * encodes}")
         env_steps = SWEEP_ENVS * SWEEP_MACRO * JUMPS / out["wall"]
         g_rows = SWEEP_ENVS * 4 * SWEEP_MACRO / out["wall"] if method == "ai" else 0.0
         runs[method] = dict(launches=launches, scores=scores.cpu(),
@@ -3554,10 +3770,11 @@ def resource_usage(build, name: str) -> list:
     return rows
 
 
-def kernel_rows(build, k1: dict, per_render: int, dc: dict, runs: dict) -> list:
+def kernel_rows(build, k1: dict, per_render: int, dc: dict, cv: dict, runs: dict) -> list:
     """The kernels line: K1's row (its numbers at the training batch, the
-    system's main path) and the decoder kernel's (at 512 and 4096), each
-    with its launches by path and its resource usage."""
+    system's main path), the decoder kernel's (at 512 and 4096) and the
+    encoder kernel's (512 to 4096), each with its launches by path and its
+    resource usage."""
     main_B = TRAIN_BATCH
     return [{
         "name": "render",
@@ -3599,6 +3816,25 @@ def kernel_rows(build, k1: dict, per_render: int, dc: dict, runs: dict) -> list:
                              for path, launches in runs.items()},
         "by_batch": {str(B): v for B, v in dc.items()},
         "resource_usage": resource_usage(build, "deconv"),
+    }, {
+        "name": "conv",
+        "route": "cuda",
+        "source": f"{PACKAGE}/ops/cuda/conv.cu",
+        "replaces": "none: the JAX package leaves the encoder's Conv to XLA",
+        "launches": runs["train"].get("conv", 0),
+        "max_abs_err": cv[main_B]["max_abs_err"],
+        "ms": cv[main_B]["ms"],
+        "plain_ms": cv[main_B]["plain_ms"],
+        "bound_ms": cv[main_B]["bound_ms"],
+        "bound_by": "flops",
+        "library_ms": cv[main_B]["library_ms"],
+        "launches_per_encode": CONV_LAUNCHES,
+        "batch": main_B,
+        "launches_by_path": {path: launches.get("conv", 0)
+                             for path, launches in runs.items()},
+        "by_batch": {str(B): {k: v for k, v in n.items() if k != "stages"}
+                     for B, n in cv.items()},
+        "resource_usage": resource_usage(build, "conv"),
     }]
 
 
@@ -3653,10 +3889,14 @@ def main() -> None:
     bw = hbm_bytes_per_s(kind)
     # ---- 2. K1 against its plain version ---------------------------------
     deconv_route(torch, dev)  # 2b's profiler check, before phase 2 (see there)
+    conv_route(torch, dev)  # 2c's, likewise
     k1, per_render = phase_render(torch, dev, bw, smi)
 
     # ---- 2b. the decoder's kernel against its plain version ---------------
     dc = phase_deconv(torch, dev, bw, smi)
+
+    # ---- 2c. the encoder's kernel against its plain version ---------------
+    cv = phase_conv(torch, dev, bw, smi)
     LAUNCHES.clear()  # the comparison launches above do not count
 
     figures = {}
@@ -3715,14 +3955,17 @@ def main() -> None:
     runs.update(phase_graphs(torch, dev, smi, args, sweeps))
 
     # ---- 16. result lines ------------------------------------------------
-    # Every path renders through K1; the decoder's kernel runs where a path
-    # decodes without autograd in float32 with TF32 allowed.
+    # Every path renders through K1; the decoder's and the encoder's kernels
+    # run where a path decodes or encodes without autograd in float32 with
+    # TF32 allowed.
     for path, launches in runs.items():
         check(launches.get("render", 0) >= 1, f"{path}: kernel render never launched")
     for path in ("sweep_ai", "train"):
         check(runs[path].get("deconv", 0) >= DECONV_LAUNCHES,
               f"{path}: kernel deconv never launched")
-    kernels = kernel_rows(build, k1, per_render, dc, runs)
+    for path in ("sweep_ai", "sweep_habit", "train"):
+        check(runs[path].get("conv", 0) >= CONV_LAUNCHES, f"{path}: kernel conv never launched")
+    kernels = kernel_rows(build, k1, per_render, dc, cv, runs)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")
     print(json.dumps({"kernels": kernels}))

@@ -46,7 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deep_active_inference_mc_torch.ops.cuda import deconv
+from deep_active_inference_mc_torch.ops import cuda as cuda_ops
+from deep_active_inference_mc_torch.ops.cuda import conv, deconv
 from deep_active_inference_mc_torch.parallel.comm import copy_to_model, reduce_from_model
 
 # Both Gaussian heads clip logvar to +-10 so exp(logvar) cannot overflow
@@ -121,9 +122,19 @@ def _mask(layer: Dense, masks: Masks, i: int) -> Optional[torch.Tensor]:
     return None if masks is None else layer.cols(masks[i])
 
 
-def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
-                    layer.stride, layer.padding)
+def conv_same(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Flax's SAME stride-2 conv with a 3x3 kernel on NCHW ``x`` (even n)
+    as PyTorch computes it: one zero row and column padded after the end,
+    none before the start, then an unpadded conv."""
+    return F.conv2d(F.pad(x, (0, 1, 0, 1)), weight, bias, 2)
+
+
+def conv_chain(layers: Sequence[nn.Conv2d], x: torch.Tensor, dtype) -> torch.Tensor:
+    """The encoder's convs on NCHW ``x`` through cuDNN: each layer SAME
+    stride 2 in ``dtype``, then ReLU. NCHW out."""
+    for layer in layers:
+        x = F.relu(conv_same(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype)))
+    return x
 
 
 def deconv_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -213,7 +224,12 @@ class TransitionNet(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Q(s|o): 4 stride-2 SAME convs + 3 FC(256) with dropout -> (mean, logvar)."""
+    """Q(s|o): 4 stride-2 SAME convs + 3 FC(256) with dropout -> (mean, logvar).
+
+    Where ``ops.cuda.use_kernel`` holds (a card, float32, no autograd
+    recording, TF32 allowed), the convs and the NHWC flatten run as the
+    hand-written kernel (``ops/cuda/conv.py``); otherwise as ``conv_chain``,
+    cuDNN's NCHW chain."""
 
     def __init__(self, s_dim: int = 10, colour_channels: int = 1,
                  resolution: int = 64, dropout_rate: float = 0.5, dtype=torch.float32):
@@ -235,10 +251,11 @@ class Encoder(nn.Module):
         return _draw_masks(rows, self.widths, self.dropout_rate, generator, device)
 
     def forward(self, o: torch.Tensor, masks: Masks = None):
-        x = o
-        for conv in self.conv:
-            x = F.relu(_conv(conv, F.pad(x, (0, 1, 0, 1)), self.compute_dtype))  # SAME, stride 2
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+        if cuda_ops.use_kernel(o.device, self.compute_dtype):
+            x = conv.encode_flat(o.float().contiguous(), self.conv)
+        else:
+            x = conv_chain(self.conv, o, self.compute_dtype)
+            x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
         for i in range(3):
             x = F.relu(self.fc[i](x))
             x = _dropout(x, _mask(self.fc[i], masks, i), self.dropout_rate)
@@ -251,7 +268,7 @@ class Decoder(nn.Module):
     transposed convs and a sigmoid. Resolution 64 uses a stride-2 third
     deconv, 32 a stride-1 one.
 
-    Where ``ops/cuda/deconv.use_kernel`` holds (a card, float32, no
+    Where ``ops.cuda.use_kernel`` holds (a card, float32, no
     autograd recording, TF32 allowed), the transposed convs run as the
     hand-written NHWC kernel, which applies the last dense layer's ReLU as
     it loads (it commutes with the dropout's positive scale); otherwise as
@@ -284,7 +301,7 @@ class Decoder(nn.Module):
         return _draw_masks(rows, self.widths, self.dropout_rate, generator, device)
 
     def forward(self, s: torch.Tensor, masks: Masks = None):
-        fused = deconv.use_kernel(s.device, self.compute_dtype)
+        fused = cuda_ops.use_kernel(s.device, self.compute_dtype)
         x = s
         for i in range(4):
             x = self.fc[i](x)

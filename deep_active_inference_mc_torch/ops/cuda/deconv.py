@@ -14,10 +14,11 @@ in float64, with its TF32 roundings; ``layer_tf32_share`` and
 ``FRAME_ATOL`` say how far the kernel may lie from them.
 
 The kernel replaces no TPU kernel (the JAX package leaves these convolutions
-to XLA). ``Decoder.forward`` takes it when ``use_kernel`` holds: a card,
-float32 compute, no autograd recording and cuDNN's TF32 allowed, the
-precision the kernel computes in. Every other decode (the losses' with its
-backward, bf16, TF32 off) keeps cuDNN.
+to XLA). ``Decoder.forward`` takes it when ``ops.cuda.use_kernel`` holds, as
+the encoder's ``conv`` kernel does: a card, float32 compute, no autograd
+recording and cuDNN's TF32 allowed, the precision the kernel computes in.
+Every other decode (the losses' with its backward, bf16, TF32 off) keeps
+cuDNN.
 
 Stride-2 layers run by sub-pixel phase. ``TAPS_1D[s][p]`` lists, for output
 index ``s * i + p`` of a SAME transposed conv with PyTorch's (flipped)
@@ -77,13 +78,6 @@ def packed_taps(stride: int) -> List[int]:
     pad = 4 - len(ph)
     return [len(ph), *[p[0] for p in ph], *[0] * pad, *[p[1] for p in ph], *[0] * pad,
             *begin, *[begin[-1]] * pad, *[t[i] for i in range(4) for t in taps]]
-
-
-def use_kernel(device, dtype) -> bool:
-    """Whether a decode on ``device`` computing in ``dtype`` takes the
-    kernel: a card, float32, no autograd recording, cuDNN's TF32 allowed."""
-    return (torch.device(device).type == "cuda" and dtype == torch.float32
-            and not torch.is_grad_enabled() and torch.backends.cudnn.allow_tf32)
 
 
 # ---------------------------------------------------------------- plain version

@@ -1,5 +1,5 @@
-"""PyTorch port: the hand-written CUDA kernels (K1 and the decoder's
-transposed convs) against their plain PyTorch
+"""PyTorch port: the hand-written CUDA kernels (K1, the decoder's
+transposed convs and the encoder's convs) against their plain PyTorch
 versions on a card, and the training round, the checkpoint, the MCTS
 sweeps, the distillation replay, the demo, the causal round and the
 benchmark's env steps on a card.
@@ -22,7 +22,9 @@ from deep_active_inference_mc_torch.config import Config
 from deep_active_inference_mc_torch.envs import dsprites as tenv
 from deep_active_inference_mc_torch.envs import raster as traster
 from deep_active_inference_mc_torch.models import networks
+from deep_active_inference_mc_torch.ops import cuda as cuda_ops
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES
+from deep_active_inference_mc_torch.ops.cuda import conv as k_conv
 from deep_active_inference_mc_torch.ops.cuda import deconv as k_deconv
 from deep_active_inference_mc_torch.ops.cuda import render as k_render
 from deep_active_inference_mc_torch.infer.agent import ActiveInferenceAgent
@@ -551,5 +553,262 @@ def test_other_decodes_keep_cudnn(cuda_device, case):
                 with torch.no_grad():
                     assert torch.equal(got, _decoder_chain(dec, s))
         assert LAUNCHES["deconv"] == before
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
+
+
+# ---- the encoder's convs (ops/cuda/conv.py) ---------------------------------
+
+CONV_LAUNCHES = len(k_conv.STAGES)  # per encode
+
+
+def conv_encoder(resolution, colours, device, seed=0) -> networks.Encoder:
+    """A seeded encoder with nonzero biases on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    enc = networks.Encoder(colour_channels=colours, resolution=resolution)
+    networks.he_uniform_init_(enc, g)
+    with torch.no_grad():
+        for p in enc.parameters():
+            if p.dim() == 1:
+                p.uniform_(-0.1, 0.1, generator=g)
+    return enc.to(device)
+
+
+def conv_frames(B, colours, resolution, device, seed):
+    """Frames in [0, 1) with half their pixels 0, as sprites on a black field."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((B, colours, resolution, resolution), generator=g)
+    return torch.where(torch.rand(x.shape, generator=g) < 0.5, 0.0, x).to(device)
+
+
+CONV_CASES = [(B, res, c) for B in (1, 33, 512) for res, c in
+              ((64, 1), (64, 3), (32, 1), (32, 3))] + [(4096, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,resolution,colours", CONV_CASES)
+def test_conv_kernel_launches_match_the_model(cuda_device, B, resolution, colours):
+    """Each launch on its own input (the launch before's output) against
+    ``stage_tf32``, the launch in float64 with the kernel's operands:
+    beyond the half TF32 unit of its own output rounding, within FP32
+    summation's bound (``stage_tf32_share``); the flatten within
+    ``encode_tf32``'s bound. Both also near the plain version in float64,
+    whose distance from the model is TF32's own error."""
+    enc = conv_encoder(resolution, colours, cuda_device, seed=B)
+    layers64 = copy.deepcopy(enc.conv).double()
+    o = conv_frames(B, colours, resolution, cuda_device, seed=B)
+    with torch.no_grad():
+        x = o
+        for stage in range(CONV_LAUNCHES):
+            before = LAUNCHES["conv"]
+            got = k_conv.stage_cuda(x, enc.conv, stage)
+            torch.cuda.synchronize()
+            assert LAUNCHES["conv"] == before + 1
+            plain = k_conv.stage_plain(x.double(), layers64, stage)
+            assert got.shape == plain.shape, (stage, got.shape, plain.shape)
+            share = k_conv.stage_tf32_share(got, x, enc.conv, stage)
+            assert float(share.max()) <= 1.0, (stage, float(share.max()))
+            assert float((got.double() - plain).abs().max()) < 2.0 ** -6 * float(plain.abs().max())
+            x = got
+        flat = k_conv.encode_flat(o, enc.conv)
+        value, bound = k_conv.encode_tf32(o, enc.conv)
+        plain = k_conv.encode_flat_plain(o.double(), layers64)
+    assert torch.equal(flat, x.reshape(B, -1))
+    assert float(k_conv.tf32_share(flat, value, bound, rounded=False).max()) <= 1.0
+    assert float((flat.double() - plain).abs().max()) <= 2.0 ** -8
+
+
+def _dense_interval(enc, value, bound):
+    """The encoder's dense layers and heads in float64 on a flatten known
+    to lie within ``bound`` of ``value``: (mean, logvar) and how far each
+    may move (an interval through each ReLU, the clip and the heads)."""
+    mid, half = value, bound
+    for i in range(4):
+        w, b = enc.fc[i].weight.double(), enc.fc[i].bias.double()
+        mid, half = mid @ w.T + b, half @ w.abs().T
+        if i < 3:
+            lo, hi = F.relu(mid - half), F.relu(mid + half)
+            mid, half = (lo + hi) / 2, (hi - lo) / 2
+    mean, logvar = torch.chunk(mid, 2, dim=-1)
+    h_mean, h_logvar = torch.chunk(half, 2, dim=-1)
+    lo, hi = (torch.clamp(logvar + s * h_logvar, -networks.LOGVAR_CLIP, networks.LOGVAR_CLIP)
+              for s in (-1, 1))
+    return (mean, h_mean), ((lo + hi) / 2, (hi - lo) / 2)
+
+
+# The FP32 dense layers' own error on the card, beyond the flatten's: their
+# sums of 1024 and 256 products in float32 differ from float64 by a few
+# 1e-6 at the heads' magnitudes (|mean|, |logvar| < 10).
+CONV_HEAD_ATOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resolution,colours", [(64, 1), (32, 3)])
+def test_conv_encoder_heads_within_the_model(cuda_device, resolution, colours):
+    """``Encoder.forward`` on the card takes the kernel (3 launches), and
+    its mean and logvar lie within ``encode_tf32``'s bound carried through
+    the dense layers in float64, plus ``CONV_HEAD_ATOL`` for the dense
+    layers' own FP32 sums."""
+    enc = conv_encoder(resolution, colours, cuda_device, seed=3)
+    o = conv_frames(1024, colours, resolution, cuda_device, seed=4)
+    with torch.no_grad():
+        before = LAUNCHES["conv"]
+        mean, logvar = enc(o)
+        assert LAUNCHES["conv"] == before + CONV_LAUNCHES
+        value, bound = k_conv.encode_tf32(o, enc.conv)
+        (m, hm), (lv, hlv) = _dense_interval(enc, value, bound)
+    assert float(((mean.double() - m).abs() - hm).max()) <= CONV_HEAD_ATOL
+    assert float(((logvar.double() - lv).abs() - hlv).max()) <= CONV_HEAD_ATOL
+
+
+@pytest.mark.cuda
+def test_conv_kernel_rows_are_independent(cuda_device):
+    """A row encoded alone, or among 256, gives the bits it gets inside a
+    4096-row batch, and two runs give the same bits (no atomics, no
+    split-K, no sum across frames)."""
+    enc = conv_encoder(64, 1, cuda_device)
+    o = conv_frames(4096, 1, 64, cuda_device, seed=5)
+    with torch.no_grad():
+        full = k_conv.encode_flat(o, enc.conv)
+        assert torch.equal(full, k_conv.encode_flat(o, enc.conv))
+        for i in (0, 1, 2047, 4095):
+            alone = k_conv.encode_flat(o[i:i + 1].contiguous(), enc.conv)
+            assert torch.equal(alone[0], full[i]), i
+        assert torch.equal(k_conv.encode_flat(o[256:512].contiguous(), enc.conv), full[256:512])
+    enc32 = conv_encoder(32, 3, cuda_device)
+    o32 = conv_frames(257, 3, 32, cuda_device, seed=6)  # tiles of 4 frames, one part-filled
+    with torch.no_grad():
+        full = k_conv.encode_flat(o32, enc32.conv)
+        for i in (0, 255, 256):
+            assert torch.equal(k_conv.encode_flat(o32[i:i + 1].contiguous(), enc32.conv)[0],
+                               full[i]), i
+
+
+@pytest.mark.cuda
+def test_conv_graphed_encode_equals_eager(cuda_device):
+    """An encode captured in a CUDA graph and replayed on new frames gives
+    the eager launches' bits; the capture counts its launches once."""
+    enc = conv_encoder(64, 1, cuda_device)
+    o = conv_frames(512, 1, 64, cuda_device, seed=1)
+    o2 = conv_frames(512, 1, 64, cuda_device, seed=2)
+    with torch.no_grad():
+        k_conv.encode_flat(o, enc.conv)  # the first launch, outside any capture
+        static = o.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k_conv.encode_flat(static, enc.conv)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = LAUNCHES["conv"]
+        with torch.cuda.graph(graph):
+            out = k_conv.encode_flat(static, enc.conv)
+        assert LAUNCHES["conv"] == before + CONV_LAUNCHES
+        static.copy_(o2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k_conv.encode_flat(o2, enc.conv))
+        static.copy_(o)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k_conv.encode_flat(o, enc.conv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,encodes", [("habit", 1), ("ai", 2)])
+def test_graphed_sweeps_launch_the_conv_kernel_per_encode(cuda_device, method, encodes):
+    """A graphed sweep encodes through the kernel: the habit once a macro
+    step (the frame), ai twice (the frame, and G's re-encode of its
+    decode), warm-up, capture and replays alike."""
+    cfg = Config()
+    agent = ActiveInferenceAgent().init(torch.Generator().manual_seed(0)).to(cuda_device)
+    lut = traster.build_sprite_lut(cuda_device)
+    before = LAUNCHES["conv"]
+    out = sweep_lib.run_sweep(agent, cfg, lut, seed=3, n_envs=64, n_macro_steps=4,
+                              method=method)
+    assert LAUNCHES["conv"] == before + encodes * CONV_LAUNCHES * 4
+    assert bool(torch.isfinite(out["scores"]).all())
+
+
+@pytest.mark.cuda
+def test_train_round_launches_the_conv_kernel_without_autograd(cuda_device):
+    """A crn + gen_mean round: the generator's 4 action columns x 2 encodes
+    and the round's two no-grad encodes of o0 and o1 go through the kernel
+    (30 launches); the losses' encodes, with their backward, do not."""
+    cfg = Config(batch=64, crn=True, gen_mean=True, edge_frac=0.3)
+    gen = seeded_generator(cuda_device, 0)
+    state = train_loop.create_train_state(cfg, ActiveInferenceAgent(), gen, cuda_device)
+    round_fn = train_loop.make_round_fn(cfg, traster.build_sprite_lut(cuda_device))
+    before = LAUNCHES["conv"]
+    state, metrics = round_fn(state, gen)
+    assert LAUNCHES["conv"] == before + (4 * 2 + 2) * CONV_LAUNCHES
+    assert all(v.is_cuda and bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cpu", "strided", "float64", "misshapen"])
+def test_conv_kernel_refuses_what_it_does_not_take(cuda_device, case):
+    """``encode_flat_cuda`` raises, and launches nothing, for frames on the
+    CPU, strided, in float64 or of a shape no instantiation covers."""
+    enc = conv_encoder(64, 1, cuda_device)
+    o = conv_frames(8, 1, 64, cuda_device, seed=0)
+    if case == "cpu":
+        o, enc = o.cpu(), enc.cpu()
+    elif case == "strided":
+        o = conv_frames(8, 1, 128, cuda_device, seed=0)[:, :, ::2, ::2]
+    elif case == "float64":
+        o = o.double()
+    else:
+        o = conv_frames(8, 1, 48, cuda_device, seed=0)
+    before = LAUNCHES["conv"]
+    with pytest.raises(ValueError):
+        k_conv.encode_flat_cuda(o, enc.conv)
+    assert LAUNCHES["conv"] == before
+
+
+def _encoder_chain(enc, o):
+    """The encoder through ``networks.conv_chain``, cuDNN's NCHW chain."""
+    x = networks.conv_chain(enc.conv, o, enc.compute_dtype)
+    x = x.permute(0, 2, 3, 1).reshape(o.shape[0], -1)
+    for i in range(3):
+        x = F.relu(enc.fc[i](x))
+    mean, logvar = torch.chunk(enc.fc[3](x).float(), 2, dim=-1)
+    return mean, torch.clamp(logvar, -networks.LOGVAR_CLIP, networks.LOGVAR_CLIP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grad", "bf16", "tf32_off"])
+def test_other_encodes_keep_cudnn(cuda_device, case):
+    """With autograd, in bf16 and with TF32 off the encoder launches no
+    kernel of its own; under autograd and with TF32 off its heads equal the
+    chain it ran before (cuDNN deterministic, so the bits are stable)."""
+    enc = conv_encoder(64, 1, cuda_device)
+    o = conv_frames(64, 1, 64, cuda_device, seed=0)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = case != "tf32_off"
+    try:
+        before = LAUNCHES["conv"]
+        if case == "grad":
+            got = enc(o)
+            grads = torch.autograd.grad(sum(t.square().sum() for t in got), list(enc.parameters()))
+            want = _encoder_chain(enc, o)
+            want_grads = torch.autograd.grad(sum(t.square().sum() for t in want),
+                                             list(enc.parameters()))
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+        else:
+            if case == "bf16":
+                enc16 = networks.Encoder(dtype=torch.bfloat16).to(cuda_device)
+                enc16.load_state_dict(enc.state_dict())
+                enc = enc16
+            with torch.no_grad():
+                got = enc(o)
+            assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in got)
+            if case == "tf32_off":
+                with torch.no_grad():
+                    assert all(torch.equal(a, b) for a, b in zip(got, _encoder_chain(enc, o)))
+        assert LAUNCHES["conv"] == before
+        assert not cuda_ops.use_kernel(o.device, enc.compute_dtype)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved

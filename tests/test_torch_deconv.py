@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from deep_active_inference_mc_torch.models import networks
+from deep_active_inference_mc_torch.ops import cuda as cuda_ops
 from deep_active_inference_mc_torch.ops.cuda import LAUNCHES, deconv
 
 SPECS = [(64, 1), (64, 3), (32, 1), (32, 3)]  # (resolution, colour channels)
@@ -112,12 +113,13 @@ def test_packed_table_is_the_kernels_layout(stride, taps_per_phase):
 ])
 def test_route_predicate(device, dtype, grad, tf32, want):
     """The kernel only for a card, float32, no grad and TF32 on; cuDNN's
-    chain for bf16, for autograd and with TF32 off."""
+    chain for bf16, for autograd and with TF32 off. The predicate is the
+    one the encoder's kernel shares, ``ops.cuda.use_kernel``."""
     with tf32_allowed(tf32), torch.set_grad_enabled(grad):
-        assert deconv.use_kernel(torch.device(device), dtype) is want
+        assert cuda_ops.use_kernel(torch.device(device), dtype) is want
     if want:
         with tf32_allowed(True), torch.inference_mode():
-            assert deconv.use_kernel(device, dtype)
+            assert cuda_ops.use_kernel(device, dtype)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -132,7 +134,7 @@ def test_decoder_kernel_route_equals_its_chain(monkeypatch, resolution, colours,
     masks = dec.draw_masks(4, g, "cpu") if masked else None
     with torch.no_grad():
         want = dec(s, masks)
-        monkeypatch.setattr(deconv, "use_kernel", lambda device, dtype: True)
+        monkeypatch.setattr(cuda_ops, "use_kernel", lambda device, dtype: True)
         calls = []
         real = deconv.decode_frames
         monkeypatch.setattr(deconv, "decode_frames", lambda x, layers: calls.append(x) or
@@ -144,7 +146,7 @@ def test_decoder_kernel_route_equals_its_chain(monkeypatch, resolution, colours,
 
 
 def test_first_load_builds_every_kernel_together(monkeypatch):
-    """Loading either kernel's library starts every missing build at once,
+    """Loading any kernel's library starts every missing build at once,
     so a checkout's first run waits for the longer nvcc and not for the
     sum; the load stays the ``k1.load`` span that ``load_s`` reads."""
     from deep_active_inference_mc_torch.ops.cuda import KERNELS, build
@@ -155,7 +157,7 @@ def test_first_load_builds_every_kernel_together(monkeypatch):
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
     before = profiling.totals().get("k1.load")
     assert build.load(deconv.NAME) == str(build.library_path(deconv.NAME))
-    assert len(calls) == 1 and set(calls[0]) == set(KERNELS) == {"render", deconv.NAME}
+    assert len(calls) == 1 and set(calls[0]) == set(KERNELS) == {"render", deconv.NAME, "conv"}
     after = profiling.totals()["k1.load"]
     assert after.count == (before.count if before else 0) + 1
 
